@@ -1,0 +1,75 @@
+"""Vectorized episode runner (port of `overcooked_ai_tpu.core.env`).
+
+The environment is the batch axis: every state field carries the env batch
+on its last axis, `env_step` advances all envs at once with horizon
+termination and auto-reset, and `rollout_random` runs a whole horizon of
+uniform-random play. On a CUDA tensor `rollout_random` is one launch of
+the whole-horizon kernel (`ops/fused_rollout.py`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from overcooked_ai_tpu_torch.core.layout import Layout
+from overcooked_ai_tpu_torch.core.state import State, to_torch
+from overcooked_ai_tpu_torch.core.step import step
+
+DEFAULT_HORIZON = 400  # reference DEFAULT_ENV_PARAMS
+
+
+class Timestep(NamedTuple):
+    """Per-step outputs of the batched env (batch on the last axis)."""
+
+    state: State  # post-transition state (pre-reset)
+    obs_state: State  # state after auto-reset (what the policy sees next)
+    sparse_reward: torch.Tensor  # (P, B) int32
+    shaped_reward: torch.Tensor  # (P, B) int32
+    events: torch.Tensor  # (NUM_EVENTS, P, B) bool
+    done: torch.Tensor  # (B,) bool
+    reward: torch.Tensor  # (B,) int32 summed sparse reward
+
+
+def batch_reset(layout: Layout, batch_size: int, device="cuda") -> State:
+    """The start state repeated over a last batch axis."""
+    start = to_torch(layout.start_state, device)
+    return State(
+        *(x[..., None].expand(x.shape + (batch_size,)).contiguous() for x in start)
+    )
+
+
+def env_step(layout: Layout, state: State, actions: torch.Tensor, horizon) -> Timestep:
+    """One batched env transition with horizon termination and auto-reset.
+
+    actions: (P, B) int32.
+    """
+    next_state, info = step(layout, state, actions)
+    done = next_state.t >= horizon
+    start = to_torch(layout.start_state, done.device)
+    return Timestep(
+        state=next_state,
+        obs_state=State(
+            *(torch.where(done, fresh[..., None], cur) for fresh, cur in zip(start, next_state))
+        ),
+        sparse_reward=info.sparse_reward,
+        shaped_reward=info.shaped_reward,
+        events=info.events,
+        done=done,
+        reward=info.sparse_reward.sum(0, dtype=torch.int32),
+    )
+
+
+def rollout_random(layout: Layout, state: State, seed: int, num_steps: int,
+                   horizon: int = DEFAULT_HORIZON):
+    """`num_steps` steps of uniform-random play from `state`.
+
+    The actions are the counter-hash stream of `ops/fused_rollout.py`
+    (seed, env index, player, step), not a torch generator's draws.
+    Returns (final_state, total summed sparse reward as an int64 scalar).
+    """
+    from overcooked_ai_tpu_torch.ops.fused_rollout import fused_rollout_random
+
+    final, ret = fused_rollout_random(layout, state, seed, num_steps, horizon)
+    return final, ret.sum()

@@ -1,0 +1,432 @@
+// Device code shared by the two kernels of this package: the layout block and
+// the per-env Overcooked transition.
+//
+// One thread runs one env. The layout is data, not code: terrain, the start
+// state, the recipe value / time / optimal-value tables, the shaping rewards
+// and the old-dynamics flag arrive as one `LayoutData` block (packed by
+// ops/_build.py:layout_words), which each block copies into shared memory.
+// One build therefore serves every layout; only the player count is a
+// template parameter.
+//
+// Per env, each grid cell is one packed 32-bit word, kept in the thread's
+// local memory for the whole step (or the whole horizon):
+//   bits 0-2   object code (OBJ_*)
+//   bits 3-8   three 2-bit soup ingredient slots, in insertion order
+//   bits 9-16  soup cooking tick + 1 (0 = idle / no soup)
+//   bits 17-27 insertion stamp + HW, clamped at 2047 (exact for 2-player
+//              horizon-400 play; the same clamp as the TPU kernels)
+// Players stay unpacked in registers.
+//
+// Semantics: those of core/step.py (the reference get_state_transition),
+// with one documented narrowing shared with the TPU kernels: cook ticks
+// advance only on the layout's pot cells and start-state soup cells. A soup
+// anywhere else was picked up ready, so it never cooks in reachable play.
+#pragma once
+
+#include <cstdint>
+#include <cstring>
+#include <cuda_runtime.h>
+
+#define OC_MAX_HW 128
+#define OC_MAX_P 4
+#define OC_SEQ_MAX 2047
+
+// Codes, as in core/constants.py.
+#define OC_OBJ_NONE 0
+#define OC_OBJ_ONION 1
+#define OC_OBJ_TOMATO 2
+#define OC_OBJ_DISH 3
+#define OC_OBJ_SOUP 4
+#define OC_T_EMPTY 0
+#define OC_T_COUNTER 1
+#define OC_T_ONION_DISP 2
+#define OC_T_TOMATO_DISP 3
+#define OC_T_POT 4
+#define OC_T_DISH_DISP 5
+#define OC_T_SERVE 6
+#define OC_ACTION_INTERACT 5
+
+// Event bits, in EVENT_TYPES order.
+enum {
+  EV_TOMATO_PICKUP, EV_USEFUL_TOMATO_PICKUP, EV_TOMATO_DROP, EV_USEFUL_TOMATO_DROP,
+  EV_POTTING_TOMATO, EV_ONION_PICKUP, EV_USEFUL_ONION_PICKUP, EV_ONION_DROP,
+  EV_USEFUL_ONION_DROP, EV_POTTING_ONION, EV_DISH_PICKUP, EV_USEFUL_DISH_PICKUP,
+  EV_DISH_DROP, EV_USEFUL_DISH_DROP, EV_SOUP_PICKUP, EV_SOUP_DELIVERY, EV_SOUP_DROP,
+  EV_OPTIMAL_ONION_POTTING, EV_OPTIMAL_TOMATO_POTTING, EV_VIABLE_ONION_POTTING,
+  EV_VIABLE_TOMATO_POTTING, EV_CATASTROPHIC_ONION_POTTING,
+  EV_CATASTROPHIC_TOMATO_POTTING, EV_USELESS_ONION_POTTING, EV_USELESS_TOMATO_POTTING,
+};
+
+// All int32 words, in this order (ops/_build.py:layout_words writes them).
+struct LayoutData {
+  int height, width, num_cells, num_players;
+  int old_dynamics, num_pots, rew_pot, rew_dish;
+  int rew_soup, num_pot_cells, num_effect_cells, reserved;
+  int time_table[16];      // [n_onions * 4 + n_tomatoes]
+  int delivery_value[16];
+  int opt_value[16];
+  int terrain[OC_MAX_HW];
+  int reset_word[OC_MAX_HW];           // start state, packed cell words
+  int start_player[OC_MAX_P][8];       // x, y, orient, held, slot0-2, tick
+  int pot_cells[OC_MAX_HW];            // cells with a pot
+  int effect_cells[OC_MAX_HW];         // pots and start-state soups
+};
+
+// The batch-last state arrays of core/state.py, each int32 and contiguous.
+struct StateArrays {
+  int* pos;             // (P, 2, B)
+  int* orient;          // (P, B)
+  int* held;            // (P, B)
+  int* held_soup;       // (P, 3, B)
+  int* held_soup_tick;  // (P, B)
+  int* obj;             // (HW, B)
+  int* soup_ing;        // (HW, 3, B)
+  int* soup_tick;       // (HW, B)
+  int* obj_seq;         // (HW, B)
+  int* t;               // (B,)
+};
+
+struct PlayerState {
+  int x, y, orient, held, slot[3], tick;
+};
+
+__device__ __forceinline__ void load_layout(LayoutData& dst, const LayoutData& src) {
+  const int* s = reinterpret_cast<const int*>(&src);
+  int* d = reinterpret_cast<int*>(&dst);
+  for (int k = threadIdx.x; k < (int)(sizeof(LayoutData) / 4); k += blockDim.x) d[k] = s[k];
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t pack_cell(int obj, int s0, int s1, int s2, int tick,
+                                              int seq, int hw) {
+  const int stamp = min(seq + hw, OC_SEQ_MAX) & OC_SEQ_MAX;
+  return (uint32_t)(obj & 7) | ((uint32_t)(s0 & 3) << 3) | ((uint32_t)(s1 & 3) << 5) |
+         ((uint32_t)(s2 & 3) << 7) | ((uint32_t)((tick + 1) & 255) << 9) |
+         ((uint32_t)stamp << 17);
+}
+__device__ __forceinline__ int cell_obj(uint32_t w) { return w & 7; }
+__device__ __forceinline__ int cell_slot(uint32_t w, int s) { return (w >> (3 + 2 * s)) & 3; }
+__device__ __forceinline__ int cell_tickp1(uint32_t w) { return (w >> 9) & 255; }
+__device__ __forceinline__ int cell_seq(uint32_t w, int hw) { return (int)((w >> 17) & OC_SEQ_MAX) - hw; }
+__device__ __forceinline__ uint32_t with_tickp1(uint32_t w, int tickp1) {
+  return (w & ~(255u << 9)) | ((uint32_t)(tickp1 & 255) << 9);
+}
+__device__ __forceinline__ void count_slots(uint32_t w, int& n_o, int& n_t) {
+  n_o = 0;
+  n_t = 0;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const int c = cell_slot(w, s);
+    n_o += c == OC_OBJ_ONION;
+    n_t += c == OC_OBJ_TOMATO;
+  }
+}
+
+// Thread b's env of a batch-last state -> packed cells and players.
+template <int NP>
+__device__ __forceinline__ int load_env(const LayoutData& L, const StateArrays& s, int B, int b,
+                                        uint32_t* cells, PlayerState* pl) {
+  const size_t Bs = (size_t)B;
+  for (int l = 0; l < L.num_cells; ++l) {
+    cells[l] = pack_cell(s.obj[l * Bs + b], s.soup_ing[(3 * l + 0) * Bs + b],
+                         s.soup_ing[(3 * l + 1) * Bs + b], s.soup_ing[(3 * l + 2) * Bs + b],
+                         s.soup_tick[l * Bs + b], s.obj_seq[l * Bs + b], L.num_cells);
+  }
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    pl[i].x = s.pos[(2 * i + 0) * Bs + b];
+    pl[i].y = s.pos[(2 * i + 1) * Bs + b];
+    pl[i].orient = s.orient[i * Bs + b];
+    pl[i].held = s.held[i * Bs + b];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pl[i].slot[k] = s.held_soup[(3 * i + k) * Bs + b];
+    pl[i].tick = s.held_soup_tick[i * Bs + b];
+  }
+  return s.t[b];
+}
+
+template <int NP>
+__device__ __forceinline__ void store_env(const LayoutData& L, const StateArrays& s, int B, int b,
+                                          const uint32_t* cells, const PlayerState* pl, int t) {
+  const size_t Bs = (size_t)B;
+  for (int l = 0; l < L.num_cells; ++l) {
+    const uint32_t w = cells[l];
+    s.obj[l * Bs + b] = cell_obj(w);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) s.soup_ing[(3 * l + k) * Bs + b] = cell_slot(w, k);
+    s.soup_tick[l * Bs + b] = cell_tickp1(w) - 1;
+    s.obj_seq[l * Bs + b] = cell_seq(w, L.num_cells);
+  }
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    s.pos[(2 * i + 0) * Bs + b] = pl[i].x;
+    s.pos[(2 * i + 1) * Bs + b] = pl[i].y;
+    s.orient[i * Bs + b] = pl[i].orient;
+    s.held[i * Bs + b] = pl[i].held;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) s.held_soup[(3 * i + k) * Bs + b] = pl[i].slot[k];
+    s.held_soup_tick[i * Bs + b] = pl[i].tick;
+  }
+  s.t[b] = t;
+}
+
+// Auto-reset to the layout's start state.
+template <int NP>
+__device__ __forceinline__ void reset_env(const LayoutData& L, uint32_t* cells, PlayerState* pl) {
+  for (int l = 0; l < L.num_cells; ++l) cells[l] = (uint32_t)L.reset_word[l];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int* sp = L.start_player[i];
+    pl[i].x = sp[0];
+    pl[i].y = sp[1];
+    pl[i].orient = sp[2];
+    pl[i].held = sp[3];
+    pl[i].slot[0] = sp[4];
+    pl[i].slot[1] = sp[5];
+    pl[i].slot[2] = sp[6];
+    pl[i].tick = sp[7];
+  }
+}
+
+// One transition of one env. `t` is the timestep before the step. TRAIN adds
+// the shaped rewards and the event bits (which need `dishes`, the number of
+// dishes on the grid, kept up to date here).
+template <int NP, bool TRAIN>
+__device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* cells,
+                                               PlayerState* pl, int t, const int* act,
+                                               int* sparse, int* shaped, int* events,
+                                               int& dishes) {
+  const int W = L.width;
+  const int HW = L.num_cells;
+
+  // pot snapshot before any interact (usefulness classifiers)
+  int n_full = 0, n_nonempty = 0;
+  if constexpr (TRAIN && NP == 2) {
+    for (int k = 0; k < L.num_pot_cells; ++k) {
+      const uint32_t w = cells[L.pot_cells[k]];
+      int n_o, n_t;
+      count_slots(w, n_o, n_t);
+      const int n = n_o + n_t;
+      const bool soup = cell_obj(w) == OC_OBJ_SOUP;
+      const int tickp1 = cell_tickp1(w);
+      const bool idle = tickp1 == 0;
+      const bool ready = soup && !idle && tickp1 - 1 >= L.time_table[n_o * 4 + n_t];
+      const bool cooking = soup && !idle && !ready;
+      const bool part = soup && idle && n >= 1 && n < 3;
+      const bool full_idle = soup && idle && n == 3;
+      n_full += cooking || ready || full_idle;
+      n_nonempty += ready || cooking || part;
+    }
+  }
+
+  // ---- 1. resolve_interacts, one player after another
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const bool inter = act[i] == OC_ACTION_INTERACT;
+    const int o = pl[i].orient;
+    const int dx = (o == 2) - (o == 3);
+    const int dy = (o == 1) - (o == 0);
+    const int lin = (pl[i].y + dy) * W + pl[i].x + dx;
+    const bool valid = lin >= 0 && lin < HW;  // off-grid reads as empty floor
+    const uint32_t w = valid ? cells[lin] : 0u;
+    const int tt = valid ? L.terrain[lin] : OC_T_EMPTY;
+
+    const int c_obj = cell_obj(w);
+    int c_no, c_nt;
+    count_slots(w, c_no, c_nt);
+    const int c_n = c_no + c_nt;
+    const int c_tick = cell_tickp1(w) - 1;
+    const bool c_soup = c_obj == OC_OBJ_SOUP;
+    const bool c_idle = c_tick < 0;
+    const bool c_ready = c_soup && !c_idle && c_tick >= L.time_table[c_no * 4 + c_nt];
+
+    const int held_i = pl[i].held;
+    const bool has_obj = held_i != OC_OBJ_NONE;
+    const bool counter_drop = inter && tt == OC_T_COUNTER && has_obj && c_obj == OC_OBJ_NONE;
+    const bool counter_pickup = inter && tt == OC_T_COUNTER && !has_obj && c_obj != OC_OBJ_NONE;
+    const bool onion_disp = inter && tt == OC_T_ONION_DISP && !has_obj;
+    const bool tomato_disp = inter && tt == OC_T_TOMATO_DISP && !has_obj;
+    const bool dish_disp = inter && tt == OC_T_DISH_DISP && !has_obj;
+    const bool start_cook = !L.old_dynamics && inter && tt == OC_T_POT && !has_obj && c_soup &&
+                            c_idle && c_n > 0;
+    const bool soup_pickup = inter && tt == OC_T_POT && held_i == OC_OBJ_DISH && c_ready;
+    const bool pot_try =
+        inter && tt == OC_T_POT && (held_i == OC_OBJ_ONION || held_i == OC_OBJ_TOMATO);
+    // an empty pot cell counts as a fresh idle soup
+    const bool pot_ok = pot_try && (c_obj == OC_OBJ_NONE || (c_soup && c_idle && c_n < 3));
+    const bool deliver = inter && tt == OC_T_SERVE && held_i == OC_OBJ_SOUP;
+
+    int h_no = 0, h_nt = 0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      h_no += pl[i].slot[k] == OC_OBJ_ONION;
+      h_nt += pl[i].slot[k] == OC_OBJ_TOMATO;
+    }
+    sparse[i] = deliver ? L.delivery_value[h_no * 4 + h_nt] : 0;
+
+    if constexpr (TRAIN) {
+      // usefulness classifiers read the state as mutated by earlier players
+      bool dish_pickup_useful = false, dish_drop_useful = false;
+      bool ing_pickup_useful = false, ing_drop_useful = false;
+      if constexpr (NP == 2) {
+        const int other_held = pl[1 - i].held;
+        const bool all_pots_full = n_full == L.num_pots;
+        const int player_dishes = (pl[0].held == OC_OBJ_DISH) + (pl[1].held == OC_OBJ_DISH);
+        dish_pickup_useful = dishes == 0 && player_dishes < n_nonempty;
+        dish_drop_useful = n_full == 0 && other_held != OC_OBJ_ONION;
+        ing_pickup_useful = !(all_pots_full && other_held != OC_OBJ_DISH);
+        ing_drop_useful = all_pots_full && other_held != OC_OBJ_DISH;
+      }
+      const bool onion_pickup = (counter_pickup && c_obj == OC_OBJ_ONION) || onion_disp;
+      const bool tomato_pickup = counter_pickup && c_obj == OC_OBJ_TOMATO;
+      const bool dish_pickup = (counter_pickup && c_obj == OC_OBJ_DISH) || dish_disp;
+      const bool soup_pick = (counter_pickup && c_obj == OC_OBJ_SOUP) || soup_pickup;
+      const bool onion_drop = counter_drop && held_i == OC_OBJ_ONION;
+      const bool tomato_drop = counter_drop && held_i == OC_OBJ_TOMATO;
+      const bool dish_drop = counter_drop && held_i == OC_OBJ_DISH;
+      const bool soup_drop = counter_drop && held_i == OC_OBJ_SOUP;
+      const bool pot_onion = pot_ok && held_i == OC_OBJ_ONION;
+      const bool pot_tomato = pot_ok && held_i == OC_OBJ_TOMATO;
+      const int old_no = c_obj == OC_OBJ_NONE ? 0 : c_no;
+      const int old_nt = c_obj == OC_OBJ_NONE ? 0 : c_nt;
+      const int new_no = old_no + (held_i == OC_OBJ_ONION);
+      const int new_nt = old_nt + (held_i == OC_OBJ_TOMATO);
+      // a potting always leaves at most 3 items, so (new_no, new_nt) stays in the table
+      const int old_val = L.opt_value[old_no * 4 + old_nt];
+      const int new_val = pot_ok ? L.opt_value[new_no * 4 + new_nt] : 0;
+      const bool optimal = old_val == new_val;
+      const bool viable = new_val > 0;
+      const bool catastrophic = old_val > 0 && new_val == 0;
+      const bool useless = old_val == 0;
+
+      uint32_t m = 0;
+      m |= (uint32_t)tomato_pickup << EV_TOMATO_PICKUP;
+      m |= (uint32_t)(tomato_pickup && ing_pickup_useful) << EV_USEFUL_TOMATO_PICKUP;
+      m |= (uint32_t)tomato_drop << EV_TOMATO_DROP;
+      m |= (uint32_t)(tomato_drop && ing_drop_useful) << EV_USEFUL_TOMATO_DROP;
+      m |= (uint32_t)pot_tomato << EV_POTTING_TOMATO;
+      m |= (uint32_t)onion_pickup << EV_ONION_PICKUP;
+      m |= (uint32_t)(onion_pickup && ing_pickup_useful) << EV_USEFUL_ONION_PICKUP;
+      m |= (uint32_t)onion_drop << EV_ONION_DROP;
+      m |= (uint32_t)(onion_drop && ing_drop_useful) << EV_USEFUL_ONION_DROP;
+      m |= (uint32_t)pot_onion << EV_POTTING_ONION;
+      m |= (uint32_t)dish_pickup << EV_DISH_PICKUP;
+      m |= (uint32_t)(dish_pickup && dish_pickup_useful) << EV_USEFUL_DISH_PICKUP;
+      m |= (uint32_t)dish_drop << EV_DISH_DROP;
+      m |= (uint32_t)(dish_drop && dish_drop_useful) << EV_USEFUL_DISH_DROP;
+      m |= (uint32_t)soup_pick << EV_SOUP_PICKUP;
+      m |= (uint32_t)deliver << EV_SOUP_DELIVERY;
+      m |= (uint32_t)soup_drop << EV_SOUP_DROP;
+      m |= (uint32_t)(pot_onion && optimal) << EV_OPTIMAL_ONION_POTTING;
+      m |= (uint32_t)(pot_tomato && optimal) << EV_OPTIMAL_TOMATO_POTTING;
+      m |= (uint32_t)(pot_onion && viable) << EV_VIABLE_ONION_POTTING;
+      m |= (uint32_t)(pot_tomato && viable) << EV_VIABLE_TOMATO_POTTING;
+      m |= (uint32_t)(pot_onion && catastrophic) << EV_CATASTROPHIC_ONION_POTTING;
+      m |= (uint32_t)(pot_tomato && catastrophic) << EV_CATASTROPHIC_TOMATO_POTTING;
+      m |= (uint32_t)(pot_onion && useless) << EV_USELESS_ONION_POTTING;
+      m |= (uint32_t)(pot_tomato && useless) << EV_USELESS_TOMATO_POTTING;
+      events[i] = (int)m;
+      shaped[i] = (dish_disp && dish_pickup_useful ? L.rew_dish : 0) +
+                  (soup_pickup ? L.rew_soup : 0) + (pot_ok ? L.rew_pot : 0);
+      dishes += (counter_drop && held_i == OC_OBJ_DISH) - (counter_pickup && c_obj == OC_OBJ_DISH);
+    }
+
+    // ---- held-object mutations
+    const bool gained = (counter_pickup && c_soup) || soup_pickup;
+    const bool lost = counter_drop || deliver;
+    const int held_slot[3] = {pl[i].slot[0], pl[i].slot[1], pl[i].slot[2]};
+    const int held_tick = pl[i].tick;
+    int new_held = held_i;
+    if (soup_pickup) new_held = OC_OBJ_SOUP;
+    if (dish_disp) new_held = OC_OBJ_DISH;
+    if (tomato_disp) new_held = OC_OBJ_TOMATO;
+    if (onion_disp) new_held = OC_OBJ_ONION;
+    if (counter_pickup) new_held = c_obj;
+    if (counter_drop || deliver || pot_ok) new_held = OC_OBJ_NONE;
+    pl[i].held = new_held;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      pl[i].slot[k] = gained ? cell_slot(w, k) : (lost ? 0 : held_slot[k]);
+    pl[i].tick = gained ? c_tick : (lost ? -1 : held_tick);
+
+    // ---- facing-cell mutation
+    const bool changed = counter_drop || counter_pickup || soup_pickup || pot_ok || start_cook;
+    if (changed) {
+      const bool cleared = counter_pickup || soup_pickup;
+      const bool drop_soup = counter_drop && held_i == OC_OBJ_SOUP;
+      const bool placed = counter_drop || (pot_ok && c_obj == OC_OBJ_NONE);
+      int n_obj = counter_drop ? held_i : (cleared ? OC_OBJ_NONE : (pot_ok ? OC_OBJ_SOUP : c_obj));
+      int s[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s[k] = cell_slot(w, k);
+      int n_tick = c_tick;
+      if (drop_soup) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) s[k] = held_slot[k];
+        n_tick = held_tick;
+      } else if (cleared) {
+        s[0] = s[1] = s[2] = 0;
+        n_tick = -1;
+      } else if (start_cook) {
+        n_tick = 0;
+      } else if (pot_ok) {
+        // the potted ingredient goes to the first free slot (index == count)
+        const int base = c_obj == OC_OBJ_NONE ? 0 : c_n;
+        if (c_obj == OC_OBJ_NONE) s[0] = s[1] = s[2] = 0;
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          if (k == base) s[k] = held_i;
+        n_tick = -1;
+      }
+      int seq = cell_seq(w, HW);
+      if (placed) seq = t * NP + i + 1;
+      else if (cleared) seq = 0;
+      cells[lin] = pack_cell(n_obj, s[0], s[1], s[2], n_tick, seq, HW);
+    }
+  }
+
+  // ---- 2. resolve_movement: all at once; any collision reverts every move
+  int nx[NP], ny[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int a = act[i];
+    const bool is_dir = a >= 0 && a < 4;
+    const int cx = pl[i].x + (a == 2) - (a == 3);
+    const int cy = pl[i].y + (a == 1) - (a == 0);
+    const int cl = cy * W + cx;
+    const bool ok = is_dir && cl >= 0 && cl < HW && L.terrain[cl] == OC_T_EMPTY;
+    if (is_dir) pl[i].orient = a;
+    nx[i] = ok ? cx : pl[i].x;
+    ny[i] = ok ? cy : pl[i].y;
+  }
+  bool collision = false;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+#pragma unroll
+    for (int j = i + 1; j < NP; ++j) {
+      const bool same = nx[i] == nx[j] && ny[i] == ny[j];
+      const bool swap = nx[i] == pl[j].x && ny[i] == pl[j].y && pl[i].x == nx[j] && pl[i].y == ny[j];
+      collision = collision || same || swap;
+    }
+  }
+  if (!collision) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      pl[i].x = nx[i];
+      pl[i].y = ny[i];
+    }
+  }
+
+  // ---- 3. environment effects on the pot and start-soup cells
+  for (int k = 0; k < L.num_effect_cells; ++k) {
+    const int l = L.effect_cells[k];
+    const uint32_t w = cells[l];
+    if (cell_obj(w) != OC_OBJ_SOUP) continue;
+    int n_o, n_t;
+    count_slots(w, n_o, n_t);
+    int tickp1 = cell_tickp1(w);
+    if (L.old_dynamics && tickp1 == 0 && n_o + n_t == 3) tickp1 = 1;  // auto-start
+    const bool cooking = tickp1 > 0 && tickp1 - 1 < L.time_table[n_o * 4 + n_t];
+    cells[l] = with_tickp1(w, tickp1 + cooking);
+  }
+}

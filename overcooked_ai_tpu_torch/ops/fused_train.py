@@ -1,0 +1,136 @@
+"""B1: the fused training env step and its plain PyTorch version.
+
+Port of `overcooked_ai_tpu.ops.fused_train` (TPU kernel
+`_build_train_kernel`, fused_train.py:83). One launch of
+`csrc/fused_train.cu` gives, for every env of the batch:
+
+  * the exact next state, with auto-reset at `reset_horizon` (default
+    `horizon`);
+  * per-player sparse and shaped rewards;
+  * the 25 event flags bit-packed into one int32 per player (EVENT_TYPES
+    order);
+  * the lossless encoding of the post-step (post-reset) state for both
+    players as int8, whose urgency layer uses `horizon`.
+
+On a CPU tensor the wrappers run the plain version (`core.env.env_step` +
+`core.encoding.lossless_encode`), which is also what the kernel is held
+against on the card. A tensor on any other device raises.
+
+Encoding channel order (reference LAYERS): 0 self loc, 1 other loc, 2-5
+self orientation, 6-9 other orientation, 10-15 static terrain
+(pot/counter/onion/tomato/dish/serve), 16-17 onions/tomatoes in idle pot
+soups, 18-19 onions/tomatoes in active/other soups, 20 cook time remaining,
+21 soup done, 22 dishes, 23 onions, 24 tomatoes, 25 urgency.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from overcooked_ai_tpu_torch.core.constants import NUM_EVENTS
+from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS, lossless_encode
+from overcooked_ai_tpu_torch.core.env import env_step
+from overcooked_ai_tpu_torch.core.layout import Layout
+from overcooked_ai_tpu_torch.core.state import State
+from overcooked_ai_tpu_torch.ops import _build
+from overcooked_ai_tpu_torch.ops.fused_rollout import clamp_stamps
+
+launches = 0  # kernel launches since the caller last set it to 0
+
+
+def pack_events(events: torch.Tensor) -> torch.Tensor:
+    """(NUM_EVENTS, ...) bool -> (...) int32 bitmasks, EVENT_TYPES bit order."""
+    bits = torch.arange(events.shape[0], device=events.device)
+    bits = bits.reshape((-1,) + (1,) * (events.ndim - 1))
+    return (events.to(torch.int64) << bits).sum(0).to(torch.int32)
+
+
+def unpack_events(ev: torch.Tensor, num_events: int = NUM_EVENTS) -> torch.Tensor:
+    """(...) int32 bitmasks -> (num_events, ...) bool (EVENT_TYPES order)."""
+    bits = torch.arange(num_events, dtype=torch.int32, device=ev.device)
+    return ((ev[None] >> bits.reshape((num_events,) + (1,) * ev.ndim)) & 1).bool()
+
+
+def obs_tiles_to_nhwc(layout: Layout, obs: torch.Tensor) -> torch.Tensor:
+    """Kernel obs (P, 26, HW, B) -> network format (P * B, H, W, 26)."""
+    H, W = layout.terrain.shape
+    P, C, HW, B = obs.shape
+    return obs.permute(0, 3, 2, 1).reshape(P * B, H, W, C)
+
+
+def plain_train_step(layout: Layout, state: State, actions: torch.Tensor, horizon: int,
+                     reset_horizon: int):
+    """Plain version of the kernel; returns what `fused_train_step_tiles` does."""
+    ts = env_step(layout, state, actions, reset_horizon)
+    nxt = clamp_stamps(ts.obs_state)
+    obs = lossless_encode(layout, nxt, horizon, torch.int8)  # (P, 26, H, W, B)
+    P, C, H, W, B = obs.shape
+    return (
+        nxt, obs.reshape(P, C, H * W, B), ts.sparse_reward, ts.shaped_reward,
+        pack_events(ts.events),
+    )
+
+
+def _launch(layout: Layout, state: State, actions: torch.Tensor, horizon: int,
+            reset_horizon: int):
+    global launches
+    dev = state.t.device
+    num_players, batch = state.held.shape
+    if batch < 1 or num_players != 2:
+        raise ValueError("the train-step kernel needs 2 players and at least one env")
+    _build.check_state(state, layout, batch, dev)
+    if (actions.device != dev or actions.dtype != torch.int32
+            or tuple(actions.shape) != (num_players, batch) or not actions.is_contiguous()):
+        raise ValueError(f"actions must be contiguous int32 ({num_players}, {batch}) on {dev}")
+    lib = _build.load()
+    words = _build.layout_words(layout)
+    H, W = layout.terrain.shape
+    out = State(*(torch.empty_like(x) for x in state))
+    obs = torch.empty((num_players, NUM_LAYERS, H * W, batch), dtype=torch.int8, device=dev)
+    sparse, shaped, events = (
+        torch.empty((num_players, batch), dtype=torch.int32, device=dev) for _ in range(3)
+    )
+    with torch.cuda.device(dev):
+        err = lib.oc_fused_train_step(
+            words.ctypes.data,
+            ctypes.byref(_build.state_arrays(state)),
+            ctypes.byref(_build.state_arrays(out)),
+            actions.data_ptr(), obs.data_ptr(), sparse.data_ptr(), shaped.data_ptr(),
+            events.data_ptr(), batch, horizon, reset_horizon,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check_launch(err, "fused_train_step")
+    launches += 1
+    return out, obs, sparse, shaped, events
+
+
+def fused_train_step_tiles(layout: Layout, state: State, actions: torch.Tensor,
+                           horizon: int = 400, reset_horizon: int | None = None):
+    """One fused training env step in the kernel's own layout.
+
+    actions: (P, B) int32. Returns (next_state, obs (P, 26, HW, B) int8,
+    sparse (P, B), shaped (P, B), events (P, B) int32 bitmasks).
+    """
+    reset_horizon = horizon if reset_horizon is None else reset_horizon
+    dev = state.t.device
+    if dev.type == "cpu":
+        return plain_train_step(layout, state, actions, horizon, reset_horizon)
+    if dev.type == "cuda":
+        return _launch(layout, state, actions, horizon, reset_horizon)
+    raise ValueError(f"no train-step kernel for device {dev}")
+
+
+def fused_train_step(layout: Layout, state: State, actions: torch.Tensor,
+                     horizon: int = 400, reset_horizon: int | None = None):
+    """One fused training env step, in the JAX function's output layout.
+
+    Returns (next_state, obs_nhwc (P * B, H, W, 26) int8, sparse (P, B),
+    shaped (P, B), events (P, B) int32 bitmasks). The obs encodes the
+    post-step (post-auto-reset) state: what the policy sees next.
+    """
+    nxt, obs, sparse, shaped, ev = fused_train_step_tiles(
+        layout, state, actions, horizon, reset_horizon
+    )
+    return nxt, obs_tiles_to_nhwc(layout, obs), sparse, shaped, ev

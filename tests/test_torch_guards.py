@@ -1,0 +1,79 @@
+"""Guards of the torch port: it imports without JAX, and a tensor on a
+device without a kernel raises instead of falling back."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from overcooked_ai_tpu_torch.core import env, layout
+from overcooked_ai_tpu_torch.core.state import State
+from overcooked_ai_tpu_torch.ops import fused_rollout, fused_train
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "overcooked_ai_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import overcooked_ai_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+assert not any(k.split(".")[0] in ("jax", "flax") for k, v in sys.modules.items() if v)
+print(len(mods))
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 12  # every module of the package
+
+
+def test_no_jax_import_lines():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|overcooked_ai_tpu)\b", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "overcooked_ai_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
+
+
+def _meta_state(spec, batch):
+    return State(*(x.to("meta") for x in env.batch_reset(spec.layout, batch, "cpu")))
+
+
+def test_kernels_do_not_fall_back():
+    """A state off the CPU and off a card has no path: it raises, and no
+    plain version runs in the kernel's place."""
+    spec = layout.from_layout_name("cramped_room")
+    state = _meta_state(spec, 4)
+    fused_rollout.launches = fused_train.launches = 0
+    with pytest.raises(ValueError, match="no rollout kernel"):
+        fused_rollout.fused_rollout_random(spec.layout, state, 0, 5)
+    with pytest.raises(ValueError, match="no train-step kernel"):
+        fused_train.fused_train_step(
+            spec.layout, state, torch.zeros((2, 4), dtype=torch.int32, device="meta")
+        )
+    assert fused_rollout.launches == fused_train.launches == 0
+
+
+def test_cuda_call_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs the kernels there")
+    spec = layout.from_layout_name("cramped_room")
+    with pytest.raises((RuntimeError, AssertionError)):
+        env.rollout_random(spec.layout, env.batch_reset(spec.layout, 4), 0, 5)
+    from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout
+    from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        collect_rollout(spec, PPONet(NetConfig(), 4, 5), PPOConfig(num_envs=2, horizon=3))
