@@ -29,7 +29,9 @@ import time
 import warnings
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_OPS_PER_S = 67e12  # float32 outside the tensor cores; integer ops issue no faster
+# INT32 outside the tensor cores: a Hopper SM issues 64 INT32 lanes per
+# 128 FP32 lanes, so half the data sheet's 67e12 float32 rate
+H100_INT32_OPS_PER_S = 33.5e12
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]  # interact-heavy random play
 
 
@@ -184,8 +186,13 @@ def main() -> int:
         f"shaped={int(ro.shaped.sum())} events={int(ro.events.ne(0).sum())}")
 
     # where a policy step's time goes: device time by kernel over a short
-    # profiled rollout at the same width, against its wall
+    # profiled rollout at the same width, against its wall. Only the rows of
+    # device events count: a CPU op's row (aten::cudnn_convolution) carries
+    # the device time of the kernels it launched, which have rows of their own
     def dev_time(e):
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            return 0
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
@@ -258,7 +265,7 @@ def main() -> int:
     ops_per_env_step = 105 * P + 15 * n_effect + 15
     b2_ops = B * T_CMP * ops_per_env_step
     b2_bytes = B * (2 * state_bytes + 4)
-    b2_bound_ms = max(b2_ops / H100_OPS_PER_S, b2_bytes / H100_BYTES_PER_S) * 1e3
+    b2_bound_ms = max(b2_ops / H100_INT32_OPS_PER_S, b2_bytes / H100_BYTES_PER_S) * 1e3
     log(f"[6 B2 throughput] {t_b2 + t_k + t_plain:.2f}s rollout_random {B}x{T}: "
         f"{t_b2 * 1e3:.3f} ms = {B * T / t_b2:.0f} env-steps/s, return={int(total)}; "
         f"B2 launches={b2_launches} B1={b1_main6}; {B}x{T_CMP}: kernel {t_k * 1e3:.3f} ms, "

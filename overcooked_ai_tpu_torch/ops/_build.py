@@ -50,6 +50,10 @@ _HEADER_WORDS = 12
 LAYOUT_WORDS = _HEADER_WORDS + 3 * 16 + 2 * MAX_HW + 8 * MAX_P + 2 * MAX_HW
 
 _lib = None  # the loaded library, once per process
+# id(layout) -> (layout, its LayoutData words); holding the layout keeps
+# its id from being reused while the entry lives
+_words_cache: dict[int, tuple[Layout, np.ndarray]] = {}
+_WORDS_CACHE_SIZE = 64
 
 
 def _sources():
@@ -147,7 +151,20 @@ def _pack_cells(obj, soup_ing, soup_tick, obj_seq, num_cells: int) -> np.ndarray
 
 
 def layout_words(layout: Layout) -> np.ndarray:
-    """`Layout` -> the int32 `LayoutData` block the kernels read."""
+    """`Layout` -> the int32 `LayoutData` block the kernels read, built once
+    per layout object (read-only; a launch passes it by pointer)."""
+    hit = _words_cache.get(id(layout))
+    if hit is not None:
+        return hit[1]
+    if len(_words_cache) >= _WORDS_CACHE_SIZE:
+        _words_cache.clear()
+    words = _build_layout_words(layout)
+    words.flags.writeable = False
+    _words_cache[id(layout)] = (layout, words)
+    return words
+
+
+def _build_layout_words(layout: Layout) -> np.ndarray:
     H, W = layout.terrain.shape
     HW = H * W
     start = layout.start_state

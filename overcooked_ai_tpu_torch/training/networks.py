@@ -30,9 +30,7 @@ class NetConfig:
     num_filters: int = 25
     num_conv_layers: int = 3
     d2rl: bool = False
-    cell_size: int = 256  # LSTM only (a later slice)
     num_actions: int = 6
-    compute_dtype: str = "float32"
 
 
 def _glorot(layer):
@@ -44,8 +42,6 @@ def _glorot(layer):
 class PPONet(nn.Module):
     def __init__(self, cfg: NetConfig, height: int, width: int, in_channels: int = 26):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise ValueError("the torch PPONet computes in float32 only")
         self.cfg = cfg
         convs = []
         channels, h, w = in_channels, height, width

@@ -77,3 +77,19 @@ def test_reset_horizon_is_separate_from_urgency():
         )
         assert int(state.t[0]) == t + 1
         assert bool((obs[..., 25] == int(horizon - (t + 1) < 40)).all())
+
+
+def test_layout_words_built_once_per_layout():
+    """The kernels' LayoutData block is built once per layout object and
+    handed out read-only; another layout gets its own block."""
+    from overcooked_ai_tpu_torch.ops import _build
+
+    cramped = layout.from_layout_name("cramped_room").layout
+    ring = layout.from_layout_name("coordination_ring").layout
+    words = _build.layout_words(cramped)
+    assert _build.layout_words(cramped) is words
+    assert words.dtype == np.int32 and words.shape == (_build.LAYOUT_WORDS,)
+    assert not words.flags.writeable
+    other = _build.layout_words(ring)
+    assert other is not words and not np.array_equal(other, words)
+    np.testing.assert_array_equal(words, _build._build_layout_words(cramped))
