@@ -14,7 +14,18 @@ Phases, one line each with its seconds:
      steps, PPONet at NetConfig() widths, random weights from a seed) and
      `make_ppo_eval`, counting B1 launches;
   6. env throughput: `rollout_random` at 16384 envs x 4000 steps on B2,
-     then B2 held against its plain version at 16384 envs x 450 steps.
+     then B2 held against its plain version at 16384 envs x 450 steps;
+  7. B4 parity: the pool whole-horizon kernel against its plain version on
+     per-lane layouts, bit for bit: the main path's 16384 envs over 450
+     steps, a ragged batch, the 7x5 outer shape, an old-dynamics pool and 1,
+     3 and 4 players;
+  8. B3 parity: the pool train-step kernel against its plain version, every
+     step: 2048 envs, a ragged batch, 7x5 and an old-dynamics pool;
+  9. the pool policy path at full width: `collect_rollout` over a 64-layout
+     generated pool (2048 envs x 400 steps), counting B3 launches, a traced
+     short pool rollout, and B3's time per launch;
+ 10. pool env throughput: `fused_pool_rollout_random` at 16384 envs x 4000
+     steps in one B4 launch.
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure exits non-zero. Needs one CUDA card; imports
 nothing of JAX.
@@ -63,7 +74,12 @@ def main() -> int:
         layout_on,
         read_layout_config,
     )
-    from overcooked_ai_tpu_torch.ops import _build, fused_rollout, fused_train
+    from overcooked_ai_tpu_torch.core.layout_generator import (
+        LayoutGenerator,
+        gather_lanes,
+        stack_layouts,
+    )
+    from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
     from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
     from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout, make_ppo_eval
 
@@ -203,7 +219,7 @@ def main() -> int:
     by_kernel = sorted(((dev_time(e), e.key) for e in prof.key_averages() if dev_time(e) > 0),
                        reverse=True)
     busy_us = sum(us for us, _ in by_kernel)
-    b1_us = sum(us for us, k in by_kernel if "fused_train_kernel" in k)
+    b1_us = sum(us for us, k in by_kernel if "train_step_kernel<false>" in k)
     top = "; ".join(f"{k[:40]} {us / 1e3:.2f}ms" for us, k in by_kernel[:4])
     log(f"[5 policy trace] 2048x32 wall {t_prof * 1e3:.1f}ms device busy {busy_us / 1e3:.1f}ms "
         f"(idle {1 - busy_us / 1e6 / t_prof:.1%}), B1 {b1_us / 1e3:.2f}ms; top: {top}")
@@ -218,7 +234,7 @@ def main() -> int:
         for _ in range(n):
             fused_train.fused_train_step_tiles(lay, state, act, horizon=400)
         torch.cuda.synchronize()
-    dev_us = sum(dev_time(e) for e in prof.key_averages() if "fused_train_kernel" in e.key)
+    dev_us = sum(dev_time(e) for e in prof.key_averages() if "train_step_kernel<false>" in e.key)
     how = "profiler"
     b1_ms = dev_us / 1e3 / n
     if b1_ms <= 0:
@@ -271,6 +287,189 @@ def main() -> int:
         f"B2 launches={b2_launches} B1={b1_main6}; {B}x{T_CMP}: kernel {t_k * 1e3:.3f} ms, "
         f"plain {t_plain * 1e3:.1f} ms, bound {b2_bound_ms:.4f} ms, max_abs_err={b2_err}")
 
+    # ---- the layout-pool path (B3, B4): pools as the JAX bench.py makes them
+    def make_pool(n, seed=0, outer_shape=(5, 4), **kw):
+        gen_ = LayoutGenerator(outer_shape=outer_shape, prop_empty=0.95, prop_feats=0.1,
+                               num_players=kw.pop("num_players", 2),
+                               rng=np.random.RandomState(seed))
+        specs = [gen_.generate_spec(name=f"bench_{i}", **kw) for i in range(n)]
+        return fused_pool.check_pool_uniform(specs), specs
+
+    def lanes_of(specs, B, seed):
+        idx = torch.randint(len(specs), (B,), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed))
+        return gather_lanes(layout_on(stack_layouts(specs), dev), idx)
+
+    def kernel_ms(name, fn):
+        """fn's result and the device ms of the profiler rows whose kernel
+        name holds `name`; fails if there are none."""
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+            out = fn()
+            torch.cuda.synchronize()
+        rows = [e for e in p.key_averages() if dev_time(e) > 0]
+        ms = sum(dev_time(e) for e in rows if name in e.key) / 1e3
+        if ms <= 0:
+            raise SystemExit(f"the profiler saw no {name} time; kernels: "
+                             f"{[e.key[:60] for e in rows]}")
+        return out, ms
+
+    def reset_counts():
+        fused_train.launches = fused_rollout.launches = 0
+        fused_pool.train_launches = fused_pool.rollout_launches = 0
+
+    def counts():
+        return (fused_train.launches, fused_rollout.launches, fused_pool.train_launches,
+                fused_pool.rollout_launches)
+
+    spec_pool, specs64 = make_pool(64)  # bench.py _make_pool: 64 layouts of 5x4
+
+    # ---- 7. B4 parity, kernel vs plain, on per-lane layouts
+    t0 = time.perf_counter()
+    B, T_CMP = 16384, 450  # the main path's envs; 450 steps cross the auto-reset at 400
+    lay_b4 = lanes_of(specs64, B, 1)
+    state_b4 = batch_reset(lay_b4, B, dev)
+    got, b4_cmp_ms = kernel_ms("rollout_kernel<2, true>", lambda: (
+        fused_pool.fused_pool_rollout_random(spec_pool, lay_b4, state_b4, 1, T_CMP, horizon=400)))
+    want, b4_plain_s = synced(lambda: fused_pool.plain_pool_rollout(lay_b4, state_b4, 1, None,
+                                                                     T_CMP, 400))
+    b4_err = max_err((*got[0], got[1]), (*want[0], want[1]))
+    b4_cmp_return = int(got[1].sum())
+    cases = [("5x4 ragged", spec_pool, specs64),
+             ("7x5", *make_pool(16, 1, (7, 5))),
+             ("5x4 old dynamics", *make_pool(16, 5, old_dynamics=True)),
+             ("1 player", *make_pool(16, 1, (7, 5), num_players=1)),
+             ("3 players", *make_pool(16, 3, (7, 5), num_players=3)),
+             ("4 players", *make_pool(16, 4, (7, 5), num_players=4))]
+    for k, (_, spec0, specs) in enumerate(cases):
+        B, T, P = 250, 110, spec0.num_players  # a ragged last block; resets at 100
+        lay = lanes_of(specs, B, k)
+        state = batch_reset(lay, B, dev)
+        pacts = torch.from_numpy(
+            np.random.RandomState(k).choice(6, size=(T, P, B), p=PROB).astype(np.int32)
+        ).to(dev)
+        got = fused_pool.fused_pool_rollout_actions(spec0, lay, state, pacts, horizon=100)
+        want = fused_pool.plain_pool_rollout(lay, state, 0, pacts, T, 100)
+        b4_err = max(b4_err, max_err((*got[0], got[1]), (*want[0], want[1])))
+        got = fused_pool.fused_pool_rollout_random(spec0, lay, state, 3, T, horizon=100)
+        want = fused_pool.plain_pool_rollout(lay, state, 3, None, T, 100)
+        b4_err = max(b4_err, max_err((*got[0], got[1]), (*want[0], want[1])))
+    log(f"[7 B4 parity] {time.perf_counter() - t0:.2f}s 64-layout pool B=16384 T={T_CMP} "
+        f"murmur3 (return={b4_cmp_return}); B=250 T=110 actions+murmur3: "
+        f"{', '.join(c[0] for c in cases)}; max_abs_err={b4_err}")
+    if b4_err:
+        raise SystemExit("B4 kernel disagrees with its plain version")
+
+    # ---- 8. B3 parity, kernel vs plain, every step
+    t0 = time.perf_counter()
+    b3_err = 0
+    for k, (label, (spec0, specs), B, T) in enumerate((
+            ("5x4 B=2048", (spec_pool, specs64), 2048, 150),  # the main path's shape
+            ("5x4 B=37", (spec_pool, specs64), 37, 60),  # fewer envs than a block
+            ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 150),
+            ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 150))):
+        lay = lanes_of(specs, B, 10 + k)
+        pool = fused_pool.pool_data(spec0, lay, dev)
+        rng = np.random.RandomState(k)
+        sk = sp = batch_reset(lay, B, dev)
+        err = torch.zeros((), dtype=torch.int64, device=dev)
+        for _t in range(T):  # auto-resets at 100; urgency from step 80 of 120
+            a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
+            kk = fused_pool.fused_pool_train_step_tiles(spec0, pool, sk, a, horizon=120,
+                                                        reset_horizon=100)
+            pp = fused_pool.plain_pool_train_step(pool.layout, sp, a, 120, 100)
+            for g, w in zip((*kk[0], *kk[1:]), (*pp[0], *pp[1:])):
+                err = torch.maximum(err, (g.long() - w.long()).abs().max())
+            sk, sp = kk[0], pp[0]
+        b3_err = max(b3_err, int(err))
+    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=150 and B=37 T=60, "
+        f"7x5 B=256 T=150, old dynamics B=256 T=150, max_abs_err={b3_err}")
+    if b3_err:
+        raise SystemExit("B3 kernel disagrees with its plain version")
+
+    # ---- 9. the pool policy path at full width
+    net_pool = PPONet(NetConfig(), spec_pool.height, spec_pool.width).to(dev)
+    collect_rollout(specs64, net_pool, PPOConfig(num_envs=2048, horizon=4), gen, dev)  # warm-up
+    reset_counts()
+    ro, t_pool = synced(lambda: collect_rollout(specs64, net_pool, cfg, gen, dev))
+    pool_counts = counts()
+    b3_launches = pool_counts[2]
+    if pool_counts != (0, 0, cfg.horizon, 0):
+        raise SystemExit(f"pool collect_rollout launched B1/B2/B3/B4 {pool_counts} times, "
+                         f"want B3 {cfg.horizon} times and nothing else")
+    ok = (ro.obs.shape == (400, 4096, spec_pool.height, spec_pool.width, NUM_LAYERS)
+          and ro.pool_idx.shape == (2048,) and len(set(ro.pool_idx.tolist())) == 64
+          and bool(torch.isfinite(ro.logp).all()) and bool(torch.isfinite(ro.value).all())
+          and int(ro.events.ne(0).sum()) > 0)
+    if not ok:
+        raise SystemExit("pool collect_rollout output is malformed")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, t_prof = synced(lambda: collect_rollout(
+            specs64, net_pool, PPOConfig(num_envs=2048, horizon=32), gen, dev))
+    by_kernel = sorted(((dev_time(e), e.key) for e in prof.key_averages() if dev_time(e) > 0),
+                       reverse=True)
+    busy_us = sum(us for us, _ in by_kernel)
+    b3_us = sum(us for us, k in by_kernel if "train_step_kernel<true>" in k)
+    log(f"[9 pool policy path] collect 64-layout pool 2048x400 {t_pool:.3f}s = "
+        f"{2048 * 400 / t_pool:.0f} env-steps/s; B1/B2/B3/B4 launches={pool_counts}; "
+        f"shaped={int(ro.shaped.sum())} events={int(ro.events.ne(0).sum())}; trace 2048x32 "
+        f"wall {t_prof * 1e3:.1f}ms device busy {busy_us / 1e3:.1f}ms "
+        f"(idle {1 - busy_us / 1e6 / t_prof:.1%}), B3 {b3_us / 1e3:.2f}ms")
+
+    # B3 time per launch at the main path's shape, from the profiler
+    B, n = 2048, 50
+    lay = lanes_of(specs64, B, 2)
+    pool = fused_pool.pool_data(spec_pool, lay, dev)
+    state = batch_reset(lay, B, dev)
+    act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
+    _, b3_total_ms = kernel_ms("train_step_kernel<true>", lambda: [
+        fused_pool.fused_pool_train_step_tiles(spec_pool, pool, state, act, horizon=400)
+        for _ in range(n)])
+    b3_ms = b3_total_ms / n
+    _, secs = synced(lambda: [fused_pool.plain_pool_train_step(pool.layout, state, act, 400, 400)
+                              for _ in range(10)])
+    b3_plain_ms = secs * 1e3 / 10
+    # B1's bytes (state in and out, actions, obs, rewards and events) and
+    # each lane's reset words; no lane resets here, so no start players
+    HW, P = spec_pool.height * spec_pool.width, 2
+    state_bytes = (8 * P + 6 * HW + 1) * 4
+    b3_bytes = B * (2 * state_bytes + 4 * P + NUM_LAYERS * P * HW + 12 * P + 4 * HW)
+    b3_bound_ms = b3_bytes / H100_BYTES_PER_S * 1e3
+    log(f"[9 B3 timing] {b3_ms:.4f} ms/launch (profiler) plain {b3_plain_ms:.3f} ms "
+        f"bound {b3_bound_ms:.5f} ms ({b3_bytes} bytes) B={B}")
+
+    # ---- 10. pool env throughput on B4: the main path's run, one launch
+    B, T = 16384, 4000
+    reset_counts()
+    (final, ret), t_b4 = synced(lambda: fused_pool.fused_pool_rollout_random(
+        spec_pool, lay_b4, state_b4, 1, T, horizon=400))
+    b4_counts = counts()
+    b4_launches = b4_counts[3]
+    if b4_counts != (0, 0, 0, 1):
+        raise SystemExit(f"fused_pool_rollout_random launched B1/B2/B3/B4 {b4_counts} times, "
+                         f"want B4 once")
+    if not (bool(final.t.eq(T % 400).all()) and int((ret >= 0).sum()) == B):
+        raise SystemExit("fused_pool_rollout_random: wrong final timestep or a negative return")
+    _, b4_ms = kernel_ms("rollout_kernel<2, true>", lambda: (
+        fused_pool.fused_pool_rollout_random(spec_pool, lay_b4, state_b4, 1, T, horizon=400)))
+    # integer operations of one env step, counted by hand from
+    # csrc/overcooked_step.cuh under POOL: about 110 per player (B2's 105 and
+    # the terrain read from the cell word), 4 per cell for the cook-tick pass
+    # over every cell, 11 more per pot cell of the lane (where soups cook), 15
+    # for collision, reset and return; the lanes' pots from their terrain
+    pots = int((lay_b4.terrain == TERRAIN_POT).sum())
+    ops_per_step = B * (110 * P + 4 * HW + 15) + 11 * pots
+    b4_ops = ops_per_step * T_CMP
+    # the state in and out, the return, the reset words at load and at the
+    # one auto-reset of 450 steps, the start players at that reset
+    b4_bytes = B * (2 * state_bytes + 4 + 4 * HW * 2 + 32 * P)
+    b4_bound_ms = max(b4_ops / H100_INT32_OPS_PER_S, b4_bytes / H100_BYTES_PER_S) * 1e3
+    log(f"[10 pool throughput] fused_pool_rollout_random {B}x{T}: wall {t_b4 * 1e3:.3f} ms, "
+        f"kernel {b4_ms:.3f} ms (profiler) = {B * T / b4_ms * 1e3:.0f} env-steps/s, "
+        f"return={int(ret.sum())}; B1/B2/B3/B4 launches={b4_counts}; {B}x{T_CMP}: kernel "
+        f"{b4_cmp_ms:.3f} ms, plain {b4_plain_s * 1e3:.1f} ms, bound {b4_bound_ms:.4f} ms "
+        f"({b4_ops} ops), max_abs_err={b4_err}")
+
     table = {"kernels": [
         {"name": "fused_train_step (B1)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_train.cu",
@@ -282,6 +481,16 @@ def main() -> int:
          "replaces": "overcooked_ai_tpu/ops/fused_rollout.py:693", "launches": b2_launches,
          "max_abs_err": b2_err, "ms": t_k * 1e3, "plain_ms": t_plain * 1e3,
          "bound_ms": b2_bound_ms, "bound_by": "operations", "library_ms": None},
+        {"name": "fused_pool_train_step (B3)", "route": "cuda",
+         "source": "overcooked_ai_tpu_torch/csrc/fused_pool_train.cu",
+         "replaces": "overcooked_ai_tpu/ops/fused_pool.py:513", "launches": b3_launches,
+         "max_abs_err": b3_err, "ms": b3_ms, "plain_ms": b3_plain_ms,
+         "bound_ms": b3_bound_ms, "bound_by": "bytes", "library_ms": None},
+        {"name": "fused_pool_rollout (B4)", "route": "cuda",
+         "source": "overcooked_ai_tpu_torch/csrc/fused_pool_rollout.cu",
+         "replaces": "overcooked_ai_tpu/ops/fused_pool.py:286", "launches": b4_launches,
+         "max_abs_err": b4_err, "ms": b4_cmp_ms, "plain_ms": b4_plain_s * 1e3,
+         "bound_ms": b4_bound_ms, "bound_by": "operations", "library_ms": None},
     ]}
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

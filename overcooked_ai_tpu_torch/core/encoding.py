@@ -20,7 +20,8 @@ Layer order (the reference LAYERS list for player i):
 
 `lossless_encode` takes a batch-last state and returns (P, 26, H, W, B):
 the JAX function vmapped with the batch on the last axis of its input and
-output.
+output. The layout is one for the batch or one per lane (leaves ending in
+B); the terrain layers 10-15 and the pot mask are then the lane's own.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from overcooked_ai_tpu_torch.core.constants import (
     TERRAIN_SERVE,
     TERRAIN_TOMATO_DISP,
 )
-from overcooked_ai_tpu_torch.core.layout import Layout
+from overcooked_ai_tpu_torch.core.layout import Layout, per_lane
 from overcooked_ai_tpu_torch.core.state import State
 from overcooked_ai_tpu_torch.core.step import slot_counts, table_lookup
 
@@ -61,7 +62,8 @@ def lossless_encode(layout: Layout, state: State, horizon: int = 400,
     dev = state.t.device
     i32 = torch.int32
 
-    terrain = torch.as_tensor(layout.terrain, dtype=i32, device=dev)[..., None]
+    terrain = torch.as_tensor(layout.terrain, dtype=i32, device=dev)
+    terrain = terrain if per_lane(layout) else terrain[..., None]  # (H, W, B or 1)
     ys = torch.arange(height, device=dev)[:, None, None]
     xs = torch.arange(width, device=dev)[None, :, None]
     ploc = [

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from overcooked_ai_tpu_torch.core.layout import Layout
+from overcooked_ai_tpu_torch.core.layout import Layout, per_lane
 from overcooked_ai_tpu_torch.core.state import State, to_torch
 from overcooked_ai_tpu_torch.core.step import step
 
@@ -33,15 +33,21 @@ class Timestep(NamedTuple):
 
 
 def batch_reset(layout: Layout, batch_size: int, device="cuda") -> State:
-    """The start state repeated over a last batch axis."""
+    """The start state repeated over a last batch axis; for a per-lane
+    layout, each lane's own start state."""
     start = to_torch(layout.start_state, device)
+    if per_lane(layout):
+        if start.t.shape != (batch_size,):
+            raise ValueError(f"a per-lane layout of {start.t.shape[0]} lanes for {batch_size} envs")
+        return State(*(x.clone() for x in start))
     return State(
         *(x[..., None].expand(x.shape + (batch_size,)).contiguous() for x in start)
     )
 
 
 def env_step(layout: Layout, state: State, actions: torch.Tensor, horizon) -> Timestep:
-    """One batched env transition with horizon termination and auto-reset.
+    """One batched env transition with horizon termination and auto-reset
+    (to each lane's own start state for a per-lane layout).
 
     actions: (P, B) int32.
     """
@@ -51,7 +57,8 @@ def env_step(layout: Layout, state: State, actions: torch.Tensor, horizon) -> Ti
     return Timestep(
         state=next_state,
         obs_state=State(
-            *(torch.where(done, fresh[..., None], cur) for fresh, cur in zip(start, next_state))
+            *(torch.where(done, fresh if fresh.ndim == cur.ndim else fresh[..., None], cur)
+              for fresh, cur in zip(start, next_state))
         ),
         sparse_reward=info.sparse_reward,
         shaped_reward=info.shaped_reward,

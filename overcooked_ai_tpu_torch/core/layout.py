@@ -274,18 +274,24 @@ def build_layout(name: str, config: dict, **params_to_overwrite) -> LayoutSpec:
     return spec
 
 
-def layout_on(layout: Layout, device) -> Layout:
-    """The layout with its tables and start state as int32 tensors on
-    `device` (scalars stay numpy), so that a loop of plain steps on a card
-    copies nothing from the host."""
-    def t(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
+def per_lane(layout: Layout) -> bool:
+    """Whether the layout holds one layout per env lane: every leaf then
+    ends in the env batch axis (`core.layout_generator.gather_lanes`)."""
+    return len(layout.terrain.shape) == 3
 
-    return layout._replace(
-        terrain=t(layout.terrain), delivery_value=t(layout.delivery_value),
-        time_table=t(layout.time_table), opt_value=t(layout.opt_value),
-        start_state=to_torch(layout.start_state, device),
-    )
+
+def layout_on(layout: Layout, device) -> Layout:
+    """The layout with its arrays as int32 tensors on `device` (one
+    layout's scalars stay numpy), so that a loop of plain steps on a card
+    copies nothing from the host. Takes a per-lane or pool layout too."""
+    def t(x):
+        if getattr(x, "ndim", 0) == 0:
+            return x
+        x = x if torch.is_tensor(x) else np.asarray(x)
+        return torch.as_tensor(x).to(device=device, dtype=torch.int32)
+
+    return Layout(*(t(x) for x in layout[:-1]),
+                  start_state=to_torch(layout.start_state, device))
 
 
 def read_layout_config(name: str) -> dict:

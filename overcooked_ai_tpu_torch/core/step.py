@@ -13,9 +13,15 @@ are the reference `OvercookedGridworld.get_state_transition`:
   3. step_environment_effects: old-dynamics pots with exactly three items
      start cooking, and cooking soups tick.
 
-This is the plain version behind both CUDA kernels (`ops/fused_train.py`,
-`ops/fused_rollout.py`): the tests hold it against the JAX step, and the
-kernels are held against it.
+The layout is one layout for the whole batch, or one per env lane: a
+`Layout` whose every leaf ends in the batch axis B
+(`core.layout_generator.gather_lanes`), the counterpart of
+`jax.vmap(step, in_axes=(-1, -1, -1), out_axes=-1)`. Then terrain, tables,
+shaping rewards, pot count and the old-dynamics flag are read per lane.
+
+This is the plain version behind the CUDA kernels (`ops/fused_train.py`,
+`ops/fused_rollout.py`, `ops/fused_pool.py`): the tests hold it against the
+JAX step, and the kernels are held against it.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from overcooked_ai_tpu_torch.core.constants import (
     TERRAIN_SERVE,
     TERRAIN_TOMATO_DISP,
 )
-from overcooked_ai_tpu_torch.core.layout import Layout
+from overcooked_ai_tpu_torch.core.layout import Layout, per_lane
 from overcooked_ai_tpu_torch.core.state import State
 
 
@@ -66,9 +72,22 @@ def slot_counts(slots: torch.Tensor, dim: int):
 
 
 def table_lookup(table, n_o: torch.Tensor, n_t: torch.Tensor) -> torch.Tensor:
-    """Look a (4, 4) layout table up at (n_o, n_t) of any shape."""
-    flat = torch.as_tensor(table, dtype=torch.int32, device=n_o.device).reshape(-1)
-    return flat[(n_o * (MAX_NUM_INGREDIENTS + 1) + n_t).long()]
+    """Look a (4, 4) layout table up at (n_o, n_t) of any shape. A per-lane
+    table (4, 4, B) is looked up by lane: (n_o, n_t) then end in B."""
+    table = torch.as_tensor(table, dtype=torch.int32, device=n_o.device)
+    idx = (n_o * (MAX_NUM_INGREDIENTS + 1) + n_t).long()
+    if table.ndim == 2:
+        return table.reshape(-1)[idx]
+    flat = table.reshape(-1, table.shape[-1])  # (16, B)
+    return flat.gather(0, idx.reshape(-1, idx.shape[-1])).reshape(idx.shape)
+
+
+def _lane_value(x, dev, dtype=torch.int32):
+    """A layout scalar: a Python number for one layout, a (B,) tensor on
+    `dev` for a per-lane layout."""
+    if getattr(x, "ndim", 0) == 0:
+        return bool(x) if dtype == torch.bool else int(x)
+    return torch.as_tensor(x, device=dev).to(dtype)
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +106,8 @@ def step(layout: Layout, state: State, actions: torch.Tensor):
     """One exact Overcooked transition for every env of a batch.
 
     Args:
-        layout: the layout's static tables (numpy).
+        layout: the layout's static tables (numpy or tensors), for the whole
+            batch or per lane (leaves ending in B).
         state: batch-last State of int32 tensors.
         actions: (P, B) int32 action indices (0..5).
 
@@ -100,9 +120,16 @@ def step(layout: Layout, state: State, actions: torch.Tensor):
     dev = state.t.device
     two_player = num_players == 2  # usefulness classifiers are 2-player only
 
+    # (HW, 1) for one layout, (HW, B) per lane
     terrain = torch.as_tensor(layout.terrain, dtype=torch.int32, device=dev)
-    terrain = terrain.reshape(num_cells)
-    old_dynamics = bool(layout.old_dynamics)
+    terrain = terrain.reshape(num_cells, batch if per_lane(layout) else 1)
+    lane_terrain = terrain.expand(num_cells, batch)
+    old_dynamics = _lane_value(layout.old_dynamics, dev, torch.bool)
+    new_dynamics = ~old_dynamics if torch.is_tensor(old_dynamics) else not old_dynamics
+    num_pots = _lane_value(layout.num_pots, dev)
+    dish_pickup_rew = _lane_value(layout.dish_pickup_rew, dev)
+    soup_pickup_rew = _lane_value(layout.soup_pickup_rew, dev)
+    placement_in_pot_rew = _lane_value(layout.placement_in_pot_rew, dev)
 
     pos, orient = state.pos, state.orient
     held = state.held.clone()
@@ -118,7 +145,7 @@ def step(layout: Layout, state: State, actions: torch.Tensor):
     events = torch.zeros((NUM_EVENTS, num_players, batch), dtype=torch.bool, device=dev)
 
     # --- pot snapshot BEFORE any interact ---
-    is_pot = (terrain == TERRAIN_POT)[:, None]
+    is_pot = terrain == TERRAIN_POT
     s_no, s_nt = slot_counts(soup_ing, 1)
     s_n = s_no + s_nt
     s_cook_time = table_lookup(layout.time_table, s_no, s_nt)
@@ -149,7 +176,7 @@ def step(layout: Layout, state: State, actions: torch.Tensor):
         raw_slots = soup_ing.gather(0, idx[:, None].expand(1, MAX_NUM_INGREDIENTS, batch))[0]
         raw_tick = soup_tick.gather(0, idx)[0]
         raw_seq = obj_seq.gather(0, idx)[0]
-        tt = torch.where(valid, terrain[idx[0]], TERRAIN_EMPTY)
+        tt = torch.where(valid, lane_terrain.gather(0, idx)[0], TERRAIN_EMPTY)
         cell_obj = torch.where(valid, raw_obj, 0)
         cell_slots = torch.where(valid, raw_slots, 0)
         cell_tick = torch.where(valid, raw_tick, 0)
@@ -170,7 +197,7 @@ def step(layout: Layout, state: State, actions: torch.Tensor):
         dish_disp = inter & (tt == TERRAIN_DISH_DISP) & ~has_obj
         start_cook = (
             inter & (tt == TERRAIN_POT) & ~has_obj & cell_is_soup & cell_idle & (c_n > 0)
-        ) & (not old_dynamics)
+        ) & new_dynamics
         soup_pickup = inter & (tt == TERRAIN_POT) & (held_i == OBJ_DISH) & cell_ready
         pot_try = inter & (tt == TERRAIN_POT) & (
             (held_i == OBJ_ONION) | (held_i == OBJ_TOMATO)
@@ -185,7 +212,7 @@ def step(layout: Layout, state: State, actions: torch.Tensor):
         # --- usefulness classifiers, before this player's own mutation ---
         if two_player:
             other_held = held[1 - i]
-            all_pots_full = n_full == int(layout.num_pots)
+            all_pots_full = n_full == num_pots
             no_full_pots = n_full == 0
             dishes_on_counters = (obj == OBJ_DISH).sum(0)
             num_player_dishes = (held == OBJ_DISH).sum(0)
@@ -258,9 +285,9 @@ def step(layout: Layout, state: State, actions: torch.Tensor):
         h_no, h_nt = slot_counts(held_soup[i], 0)
         sparse[i] += torch.where(deliver, table_lookup(layout.delivery_value, h_no, h_nt), 0)
         shaped[i] += (
-            torch.where(dish_disp & dish_pickup_useful, int(layout.dish_pickup_rew), 0)
-            + torch.where(soup_pickup, int(layout.soup_pickup_rew), 0)
-            + torch.where(pot_ok, int(layout.placement_in_pot_rew), 0)
+            torch.where(dish_disp & dish_pickup_useful, dish_pickup_rew, 0)
+            + torch.where(soup_pickup, soup_pickup_rew, 0)
+            + torch.where(pot_ok, placement_in_pot_rew, 0)
         )
 
         # --- held-object mutations ---
@@ -330,7 +357,7 @@ def step(layout: Layout, state: State, actions: torch.Tensor):
     cand_lin = cand[:, 1] * width + cand[:, 0]
     in_grid = (cand_lin >= 0) & (cand_lin < num_cells)
     cand_ok = in_grid & (
-        terrain[cand_lin.clamp(0, num_cells - 1).long()] == TERRAIN_EMPTY
+        lane_terrain.gather(0, cand_lin.clamp(0, num_cells - 1).long()) == TERRAIN_EMPTY
     )
     new_pos = torch.where((is_dir & cand_ok)[:, None], cand, pos)
     collision = torch.zeros((batch,), dtype=torch.bool, device=dev)
@@ -347,9 +374,9 @@ def step(layout: Layout, state: State, actions: torch.Tensor):
     g_no, g_nt = slot_counts(soup_ing, 1)
     is_soup = obj == OBJ_SOUP
     tick1 = soup_tick
-    if old_dynamics:
+    if torch.is_tensor(old_dynamics) or old_dynamics:
         # old dynamics: auto-start at exactly 3 ingredients
-        auto_start = is_soup & (soup_tick < 0) & (g_no + g_nt == 3)
+        auto_start = old_dynamics & is_soup & (soup_tick < 0) & (g_no + g_nt == 3)
         tick1 = torch.where(auto_start, 0, soup_tick)
     cook_time = table_lookup(layout.time_table, g_no, g_nt)
     cooking = is_soup & (tick1 >= 0) & (tick1 < cook_time)

@@ -1,75 +1,14 @@
-// B2: the whole-horizon rollout, `num_steps` env steps in one launch.
+// B2: the whole-horizon rollout for ONE layout (rollout_kernel.cuh).
 //
 // Replaces the TPU kernel overcooked_ai_tpu/ops/fused_rollout.py:693
-// `_build_kernel` (pallas_call at :920). One thread runs one env for the
-// whole horizon: its packed cells stay in local memory and its players in
-// registers, so device memory is touched twice per env (load the state,
-// store it and the return), plus the (T, P, B) actions when they are given.
+// `_build_kernel` (pallas_call at :920).
 //
 // Bound on the H100: integer operations. A step is a few hundred scalar
 // integer operations per env and no device-memory traffic, so the work per
 // byte is far above the card's ridge point. The design keeps every step's
 // state out of device memory; making the integer work cheaper (fewer local
 // memory round trips, packed players) is later work.
-//
-// Actions come from an explicit (T, P, B) int32 tensor or from the murmur3
-// counter hash of the TPU kernel (fused_rollout.py:762-787), bit for bit:
-//   x = seed * 0x9E3779B9 + b + player * 0x85EBCA6B + step * 0x27D4EB2F
-//   (uint32), two xor-shift-multiply rounds, action = ((x >> 8) * 6) >> 24.
-#include "overcooked_step.cuh"
-
-__device__ __forceinline__ int hash_action(uint32_t seed_base, uint32_t b, uint32_t player,
-                                           uint32_t step) {
-  uint32_t x = seed_base + b + player * 0x85EBCA6Bu + step * 0x27D4EB2Fu;
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
-  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  x = x ^ (x >> 16);
-  return (int)(((x >> 8) * 6u) >> 24);
-}
-
-template <int NP>
-__global__ void fused_rollout_kernel(const __grid_constant__ LayoutData lay, StateArrays in,
-                                     StateArrays out, const int* __restrict__ actions,
-                                     int* __restrict__ ret, int B, int num_steps, int horizon,
-                                     uint32_t seed, int use_rng) {
-  __shared__ LayoutData L;
-  load_layout(L, lay);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  uint32_t cells[OC_MAX_HW];
-  PlayerState pl[NP];
-  int t = load_env<NP>(L, in, B, b, cells, pl);
-  const uint32_t seed_base = seed * 0x9E3779B9u;
-  int total = 0, dishes = 0;
-  int act[NP], sparse[NP];
-  for (int k = 0; k < num_steps; ++k) {
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      act[i] = use_rng ? hash_action(seed_base, (uint32_t)b, (uint32_t)i, (uint32_t)k)
-                       : actions[((size_t)k * NP + i) * B + b];
-    env_transition<NP, false>(L, cells, pl, t, act, sparse, nullptr, nullptr, dishes);
-#pragma unroll
-    for (int i = 0; i < NP; ++i) total += sparse[i];
-    if (++t >= horizon) {
-      reset_env<NP>(L, cells, pl);
-      t = 0;
-    }
-  }
-  store_env<NP>(L, out, B, b, cells, pl, t);
-  ret[b] = total;
-}
-
-template <int NP>
-static cudaError_t launch(const LayoutData& lay, const StateArrays& in, const StateArrays& out,
-                          const int* actions, int* ret, int B, int num_steps, int horizon,
-                          int seed, int use_rng, cudaStream_t stream) {
-  const int threads = 64;
-  const int blocks = (B + threads - 1) / threads;
-  fused_rollout_kernel<NP><<<blocks, threads, 0, stream>>>(
-      lay, in, out, actions, ret, B, num_steps, horizon, (uint32_t)seed, use_rng);
-  return cudaGetLastError();
-}
+#include "rollout_kernel.cuh"
 
 extern "C" int oc_layout_words() { return (int)(sizeof(LayoutData) / 4); }
 
@@ -77,14 +16,6 @@ extern "C" int oc_layout_words() { return (int)(sizeof(LayoutData) / 4); }
 extern "C" int oc_fused_rollout(const int* layout_words, const StateArrays* in,
                                 const StateArrays* out, const int* actions, int* ret, int B,
                                 int num_steps, int horizon, int seed, int use_rng, void* stream) {
-  LayoutData lay;
-  memcpy(&lay, layout_words, sizeof(LayoutData));
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (lay.num_players) {
-    case 1: return launch<1>(lay, *in, *out, actions, ret, B, num_steps, horizon, seed, use_rng, s);
-    case 2: return launch<2>(lay, *in, *out, actions, ret, B, num_steps, horizon, seed, use_rng, s);
-    case 3: return launch<3>(lay, *in, *out, actions, ret, B, num_steps, horizon, seed, use_rng, s);
-    case 4: return launch<4>(lay, *in, *out, actions, ret, B, num_steps, horizon, seed, use_rng, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_rollout<false>(layout_words, LaneData{nullptr, nullptr}, in, out, actions, ret, B,
+                               num_steps, horizon, seed, use_rng, stream);
 }

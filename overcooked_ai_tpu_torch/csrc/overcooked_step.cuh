@@ -1,4 +1,4 @@
-// Device code shared by the two kernels of this package: the layout block and
+// Device code shared by the kernels of this package: the layout block and
 // the per-env Overcooked transition.
 //
 // One thread runs one env. The layout is data, not code: terrain, the start
@@ -8,6 +8,14 @@
 // One build therefore serves every layout; only the player count is a
 // template parameter.
 //
+// The pool kernels (template flag POOL) give every env its own layout. The
+// fields that must be uniform over the pool (tables, shaping rewards, old
+// dynamics, grid shape) still come from the `LayoutData` block; terrain and
+// the start state are the lane's own, from `LaneData` in device memory
+// (packed by ops/fused_pool.py:pool_data). The lane's terrain code rides in
+// bits 28-30 of each of its cell words, as in the TPU pool kernels, so the
+// facing-cell load brings it along.
+//
 // Per env, each grid cell is one packed 32-bit word, kept in the thread's
 // local memory for the whole step (or the whole horizon):
 //   bits 0-2   object code (OBJ_*)
@@ -15,12 +23,15 @@
 //   bits 9-16  soup cooking tick + 1 (0 = idle / no soup)
 //   bits 17-27 insertion stamp + HW, clamped at 2047 (exact for 2-player
 //              horizon-400 play; the same clamp as the TPU kernels)
+//   bits 28-30 pool kernels: the lane's terrain code (0 in the others)
 // Players stay unpacked in registers.
 //
 // Semantics: those of core/step.py (the reference get_state_transition),
-// with one documented narrowing shared with the TPU kernels: cook ticks
-// advance only on the layout's pot cells and start-state soup cells. A soup
-// anywhere else was picked up ready, so it never cooks in reachable play.
+// with one documented narrowing shared with the single-layout TPU kernels:
+// cook ticks advance only on the layout's pot cells and start-state soup
+// cells. A soup anywhere else was picked up ready, so it never cooks in
+// reachable play. The pool kernels tick every soup cell, as core/step.py
+// and the TPU pool kernels do.
 #pragma once
 
 #include <cstdint>
@@ -30,6 +41,8 @@
 #define OC_MAX_HW 128
 #define OC_MAX_P 4
 #define OC_SEQ_MAX 2047
+#define OC_TERRAIN_SHIFT 28
+#define OC_TERRAIN_BITS (7u << OC_TERRAIN_SHIFT)
 
 // Codes, as in core/constants.py.
 #define OC_OBJ_NONE 0
@@ -86,9 +99,27 @@ struct StateArrays {
   int* t;               // (B,)
 };
 
+// Per-lane layout data of the pool kernels, batch-last int32 (unused, null,
+// in the single-layout kernels).
+struct LaneData {
+  const int* reset_word;    // (HW, B) start-state cell words, terrain in bits 28-30
+  const int* start_player;  // (P, 8, B) x, y, orient, held, slot0-2, tick
+};
+
 struct PlayerState {
   int x, y, orient, held, slot[3], tick;
 };
+
+// Terrain code of cell l: the layout block's, or in the pool kernels the
+// lane's own from the cell word.
+template <bool POOL>
+__device__ __forceinline__ int terrain_at(const LayoutData& L, const uint32_t* cells, int l) {
+  if constexpr (POOL) {
+    return (int)(cells[l] >> OC_TERRAIN_SHIFT) & 7;
+  } else {
+    return L.terrain[l];
+  }
+}
 
 __device__ __forceinline__ void load_layout(LayoutData& dst, const LayoutData& src) {
   const int* s = reinterpret_cast<const int*>(&src);
@@ -123,14 +154,16 @@ __device__ __forceinline__ void count_slots(uint32_t w, int& n_o, int& n_t) {
 }
 
 // Thread b's env of a batch-last state -> packed cells and players.
-template <int NP>
-__device__ __forceinline__ int load_env(const LayoutData& L, const StateArrays& s, int B, int b,
-                                        uint32_t* cells, PlayerState* pl) {
+template <int NP, bool POOL>
+__device__ __forceinline__ int load_env(const LayoutData& L, const LaneData& lanes,
+                                        const StateArrays& s, int B, int b, uint32_t* cells,
+                                        PlayerState* pl) {
   const size_t Bs = (size_t)B;
   for (int l = 0; l < L.num_cells; ++l) {
     cells[l] = pack_cell(s.obj[l * Bs + b], s.soup_ing[(3 * l + 0) * Bs + b],
                          s.soup_ing[(3 * l + 1) * Bs + b], s.soup_ing[(3 * l + 2) * Bs + b],
                          s.soup_tick[l * Bs + b], s.obj_seq[l * Bs + b], L.num_cells);
+    if constexpr (POOL) cells[l] |= (uint32_t)lanes.reset_word[l * Bs + b] & OC_TERRAIN_BITS;
   }
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
@@ -170,13 +203,19 @@ __device__ __forceinline__ void store_env(const LayoutData& L, const StateArrays
   s.t[b] = t;
 }
 
-// Auto-reset to the layout's start state.
-template <int NP>
-__device__ __forceinline__ void reset_env(const LayoutData& L, uint32_t* cells, PlayerState* pl) {
-  for (int l = 0; l < L.num_cells; ++l) cells[l] = (uint32_t)L.reset_word[l];
+// Auto-reset to the start state: the layout's, or the lane's own.
+template <int NP, bool POOL>
+__device__ __forceinline__ void reset_env(const LayoutData& L, const LaneData& lanes, int B, int b,
+                                          uint32_t* cells, PlayerState* pl) {
+  const size_t Bs = (size_t)B;
+  for (int l = 0; l < L.num_cells; ++l)
+    cells[l] = (uint32_t)(POOL ? lanes.reset_word[l * Bs + b] : L.reset_word[l]);
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    const int* sp = L.start_player[i];
+    int sp[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      sp[k] = POOL ? lanes.start_player[(8 * i + k) * Bs + b] : L.start_player[i][k];
     pl[i].x = sp[0];
     pl[i].y = sp[1];
     pl[i].orient = sp[2];
@@ -190,8 +229,9 @@ __device__ __forceinline__ void reset_env(const LayoutData& L, uint32_t* cells, 
 
 // One transition of one env. `t` is the timestep before the step. TRAIN adds
 // the shaped rewards and the event bits (which need `dishes`, the number of
-// dishes on the grid, kept up to date here).
-template <int NP, bool TRAIN>
+// dishes on the grid, kept up to date here). POOL reads the lane's terrain
+// from its cell words.
+template <int NP, bool TRAIN, bool POOL>
 __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* cells,
                                                PlayerState* pl, int t, const int* act,
                                                int* sparse, int* shaped, int* events,
@@ -199,11 +239,11 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
   const int W = L.width;
   const int HW = L.num_cells;
 
-  // pot snapshot before any interact (usefulness classifiers)
-  int n_full = 0, n_nonempty = 0;
+  // pot snapshot before any interact (usefulness classifiers); the pool
+  // kernels find the lane's pots, and count them, by terrain
+  int n_full = 0, n_nonempty = 0, n_pots = L.num_pots;
   if constexpr (TRAIN && NP == 2) {
-    for (int k = 0; k < L.num_pot_cells; ++k) {
-      const uint32_t w = cells[L.pot_cells[k]];
+    auto snapshot = [&](uint32_t w) {
       int n_o, n_t;
       count_slots(w, n_o, n_t);
       const int n = n_o + n_t;
@@ -216,6 +256,16 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
       const bool full_idle = soup && idle && n == 3;
       n_full += cooking || ready || full_idle;
       n_nonempty += ready || cooking || part;
+    };
+    if constexpr (POOL) {
+      n_pots = 0;
+      for (int l = 0; l < HW; ++l) {
+        if (terrain_at<POOL>(L, cells, l) != OC_T_POT) continue;
+        ++n_pots;
+        snapshot(cells[l]);
+      }
+    } else {
+      for (int k = 0; k < L.num_pot_cells; ++k) snapshot(cells[L.pot_cells[k]]);
     }
   }
 
@@ -229,7 +279,7 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
     const int lin = (pl[i].y + dy) * W + pl[i].x + dx;
     const bool valid = lin >= 0 && lin < HW;  // off-grid reads as empty floor
     const uint32_t w = valid ? cells[lin] : 0u;
-    const int tt = valid ? L.terrain[lin] : OC_T_EMPTY;
+    const int tt = valid ? terrain_at<POOL>(L, cells, lin) : OC_T_EMPTY;
 
     const int c_obj = cell_obj(w);
     int c_no, c_nt;
@@ -270,7 +320,7 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
       bool ing_pickup_useful = false, ing_drop_useful = false;
       if constexpr (NP == 2) {
         const int other_held = pl[1 - i].held;
-        const bool all_pots_full = n_full == L.num_pots;
+        const bool all_pots_full = n_full == n_pots;
         const int player_dishes = (pl[0].held == OC_OBJ_DISH) + (pl[1].held == OC_OBJ_DISH);
         dish_pickup_useful = dishes == 0 && player_dishes < n_nonempty;
         dish_drop_useful = n_full == 0 && other_held != OC_OBJ_ONION;
@@ -381,7 +431,7 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
       int seq = cell_seq(w, HW);
       if (placed) seq = t * NP + i + 1;
       else if (cleared) seq = 0;
-      cells[lin] = pack_cell(n_obj, s[0], s[1], s[2], n_tick, seq, HW);
+      cells[lin] = pack_cell(n_obj, s[0], s[1], s[2], n_tick, seq, HW) | (w & OC_TERRAIN_BITS);
     }
   }
 
@@ -394,7 +444,7 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
     const int cx = pl[i].x + (a == 2) - (a == 3);
     const int cy = pl[i].y + (a == 1) - (a == 0);
     const int cl = cy * W + cx;
-    const bool ok = is_dir && cl >= 0 && cl < HW && L.terrain[cl] == OC_T_EMPTY;
+    const bool ok = is_dir && cl >= 0 && cl < HW && terrain_at<POOL>(L, cells, cl) == OC_T_EMPTY;
     if (is_dir) pl[i].orient = a;
     nx[i] = ok ? cx : pl[i].x;
     ny[i] = ok ? cy : pl[i].y;
@@ -417,16 +467,21 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
     }
   }
 
-  // ---- 3. environment effects on the pot and start-soup cells
-  for (int k = 0; k < L.num_effect_cells; ++k) {
-    const int l = L.effect_cells[k];
+  // ---- 3. environment effects: on the pot and start-soup cells, or in the
+  // pool kernels on every cell
+  auto cook = [&](int l) {
     const uint32_t w = cells[l];
-    if (cell_obj(w) != OC_OBJ_SOUP) continue;
+    if (cell_obj(w) != OC_OBJ_SOUP) return;
     int n_o, n_t;
     count_slots(w, n_o, n_t);
     int tickp1 = cell_tickp1(w);
     if (L.old_dynamics && tickp1 == 0 && n_o + n_t == 3) tickp1 = 1;  // auto-start
     const bool cooking = tickp1 > 0 && tickp1 - 1 < L.time_table[n_o * 4 + n_t];
     cells[l] = with_tickp1(w, tickp1 + cooking);
+  };
+  if constexpr (POOL) {
+    for (int l = 0; l < HW; ++l) cook(l);
+  } else {
+    for (int k = 0; k < L.num_effect_cells; ++k) cook(L.effect_cells[k]);
   }
 }

@@ -1,10 +1,12 @@
 """Build and bind the package's CUDA kernels.
 
-All sources under `csrc/` are compiled by ONE `nvcc` call into a shared
+Each source under `csrc/` is compiled by its own `nvcc` process, all
+started together, and one more `nvcc` call links the objects into a shared
 library with a plain C interface, which is loaded with `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o _build/liboc_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o _build/<name>.o   # one per source
+    nvcc -shared -o _build/liboc_kernels_<hash>.so _build/*.o
 
 (ptxas's register and spill report goes to the `.log` beside the library.)
 
@@ -32,15 +34,16 @@ import torch
 
 from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP, TERRAIN_POT
 from overcooked_ai_tpu_torch.core.layout import Layout
-from overcooked_ai_tpu_torch.core.state import State
+from overcooked_ai_tpu_torch.core.state import State, to_torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-shared"]
 
 # sizes of csrc/overcooked_step.cuh
 MAX_HW = 128
@@ -61,6 +64,14 @@ def _sources():
                   glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
+def _finish(cmd: list, proc: subprocess.Popen) -> str:
+    """Wait for one compiler process; its stderr, or RuntimeError if it failed."""
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    return err
+
+
 def _nvcc() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -72,7 +83,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -92,15 +103,28 @@ def build() -> tuple[str, bool, float]:
         return path, False, time.perf_counter() - t0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    objs, procs = [], []
+    try:
+        for src in (p for p in _sources() if p.endswith(".cu")):
+            objs.append(f"{tmp}.{os.path.basename(src)[:-3]}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", objs[-1]]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        report = [_finish(cmd, proc) for cmd, proc in procs]
+        link = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+        _finish(link, subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True))
+    finally:
+        for _, proc in procs:  # a failed build leaves no compiler running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(path[:-3] + ".log", "w") as f:  # ptxas register / spill report
-        f.write(proc.stderr)
+        f.write("".join(report))
     os.replace(tmp, path)
     return path, True, time.perf_counter() - t0
 
@@ -124,6 +148,10 @@ def load():
         lib.oc_fused_rollout.restype = i
         lib.oc_fused_train_step.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
         lib.oc_fused_train_step.restype = i
+        lib.oc_fused_pool_rollout.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.oc_fused_pool_rollout.restype = i
+        lib.oc_fused_pool_train_step.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.oc_fused_pool_train_step.restype = i
         if lib.oc_layout_words() != LAYOUT_WORDS:
             raise RuntimeError(
                 f"LayoutData has {lib.oc_layout_words()} words in C, "
@@ -138,12 +166,12 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
 
 
-def _pack_cells(obj, soup_ing, soup_tick, obj_seq, num_cells: int) -> np.ndarray:
-    """Cell fields (flat over HW) -> the kernels' packed words (int64 numpy)."""
-    obj, soup_ing, soup_tick, obj_seq = (
-        np.asarray(a, np.int64) for a in (obj, soup_ing, soup_tick, obj_seq)
-    )
-    stamp = np.minimum(obj_seq + num_cells, SEQ_MAX) & SEQ_MAX
+def pack_cell_words(obj, soup_ing, soup_tick, obj_seq, num_cells: int) -> torch.Tensor:
+    """Cell fields -> the kernels' packed cell words (torch, any device).
+
+    obj, soup_tick, obj_seq: (HW, ...); soup_ing: (HW, 3, ...).
+    """
+    stamp = torch.clamp(obj_seq + num_cells, max=SEQ_MAX) & SEQ_MAX
     return (
         (obj & 7) | ((soup_ing[:, 0] & 3) << 3) | ((soup_ing[:, 1] & 3) << 5)
         | ((soup_ing[:, 2] & 3) << 7) | (((soup_tick + 1) & 255) << 9) | (stamp << 17)
@@ -188,10 +216,11 @@ def _build_layout_words(layout: Layout) -> np.ndarray:
         o += 16
     words[o:o + HW] = terrain
     o += MAX_HW
-    words[o:o + HW] = _pack_cells(
-        s_obj, np.asarray(start.soup_ing).reshape(HW, 3),
-        np.asarray(start.soup_tick).reshape(HW), np.asarray(start.obj_seq).reshape(HW), HW,
-    )
+    cell = to_torch(start, "cpu")
+    words[o:o + HW] = pack_cell_words(
+        cell.obj.reshape(HW), cell.soup_ing.reshape(HW, 3), cell.soup_tick.reshape(HW),
+        cell.obj_seq.reshape(HW), HW,
+    ).numpy()
     o += MAX_HW
     players = np.concatenate(
         [np.asarray(start.pos), np.asarray(start.orient)[:, None],
@@ -213,7 +242,7 @@ def state_arrays(state: State) -> StateArrays:
 def check_state(state: State, layout: Layout, batch: int, device) -> None:
     """Raise unless `state` is a batch-last int32 contiguous state of
     `layout` with `batch` envs on `device`."""
-    H, W = layout.terrain.shape
+    H, W = layout.terrain.shape[:2]
     P = layout.start_state.pos.shape[0]
     want = State(
         pos=(P, 2, batch), orient=(P, batch), held=(P, batch),

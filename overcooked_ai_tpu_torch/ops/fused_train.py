@@ -55,7 +55,7 @@ def unpack_events(ev: torch.Tensor, num_events: int = NUM_EVENTS) -> torch.Tenso
 
 def obs_tiles_to_nhwc(layout: Layout, obs: torch.Tensor) -> torch.Tensor:
     """Kernel obs (P, 26, HW, B) -> network format (P * B, H, W, 26)."""
-    H, W = layout.terrain.shape
+    H, W = layout.terrain.shape[:2]
     P, C, HW, B = obs.shape
     return obs.permute(0, 3, 2, 1).reshape(P * B, H, W, C)
 

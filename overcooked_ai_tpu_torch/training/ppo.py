@@ -8,6 +8,11 @@ one fused env step (`ops/fused_train.py`, the B1 kernel on a CUDA tensor)
 with `reset_horizon = T + 1`, so the rollout is exactly one episode from
 the start state and never auto-resets. It returns what GAE will need.
 
+Given a list of specs it runs in pool mode, the JAX learner's variable-MDP
+mode: each env lane draws a layout of the pool (`pool_idx`), starts from
+that layout's start state, and every step is one launch of the pool kernel
+(`ops/fused_pool.py`, B3) on the lanes' packed layouts.
+
 `make_ppo_eval` is the JAX `make_ppo_eval`: the mean sparse return of
 `num_games` self-play games, with its env step on B1 too.
 
@@ -26,6 +31,13 @@ import torch.nn.functional as F
 
 from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS, encode_nhwc
 from overcooked_ai_tpu_torch.core.env import batch_reset
+from overcooked_ai_tpu_torch.core.layout import Layout, layout_on
+from overcooked_ai_tpu_torch.core.layout_generator import gather_lanes, stack_layouts
+from overcooked_ai_tpu_torch.ops.fused_pool import (
+    check_pool_uniform,
+    fused_pool_train_step_tiles,
+    pool_data,
+)
 from overcooked_ai_tpu_torch.ops.fused_train import fused_train_step_tiles, obs_tiles_to_nhwc
 from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
 
@@ -76,6 +88,7 @@ class Rollout(NamedTuple):
     sparse: torch.Tensor  # (T, P, B) int32 per-player sparse reward
     shaped: torch.Tensor  # (T, P, B) int32 per-player shaped reward
     events: torch.Tensor  # (T, P, B) int32 event bitmasks
+    pool_idx: Optional[torch.Tensor] = None  # (B,) int64 pool entry of each lane, pool mode
 
 
 def gumbel_sample(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -90,15 +103,46 @@ SampleFn = Callable[[torch.Tensor, int], torch.Tensor]  # (logits, step) -> (N,)
 @torch.no_grad()
 def collect_rollout(spec, net: PPONet, config: PPOConfig,
                     generator: Optional[torch.Generator] = None, device="cuda",
-                    sample_fn: Optional[SampleFn] = None) -> Rollout:
+                    sample_fn: Optional[SampleFn] = None, pool: Optional[Layout] = None,
+                    pool_idx: Optional[torch.Tensor] = None) -> Rollout:
     """Self-play one episode of `config.horizon` steps in `config.num_envs`
-    envs of `spec`'s layout under `net`."""
-    layout = spec.layout
+    envs under `net`.
+
+    spec: one LayoutSpec, or a list of them for pool mode. In pool mode
+    `pool` may replace the stacked specs with a regenerated pool of the same
+    leaf shapes, and `pool_idx` (B,) gives each lane's pool entry; by
+    default it is drawn uniformly from `generator`.
+    """
+    pool_mode = isinstance(spec, (list, tuple))
+    if pool_mode:
+        specs = list(spec)
+        spec = check_pool_uniform(specs)
     P, B, T = spec.num_players, config.num_envs, config.horizon
     if P != 2:
         raise ValueError("PPO self-play is 2-player")
     H, W = spec.height, spec.width
     sample = sample_fn or (lambda logits, t: gumbel_sample(logits, generator))
+
+    if pool_mode:
+        src = stack_layouts(specs) if pool is None else pool
+        if src.terrain.shape[-1] != len(specs):
+            raise ValueError(f"a pool of {src.terrain.shape[-1]} layouts for {len(specs)} specs")
+        if pool_idx is None:
+            pool_idx = torch.randint(len(specs), (B,), generator=generator, device=device)
+        pool_idx = torch.as_tensor(pool_idx, device=device).long()
+        layout = gather_lanes(layout_on(src, device), pool_idx)
+        lanes = pool_data(spec, layout, device)  # checks the lanes, packs them once
+
+        def env_step(state, act):
+            return fused_pool_train_step_tiles(spec, lanes, state, act, horizon=T,
+                                               reset_horizon=T + 1)
+    else:
+        if pool is not None or pool_idx is not None:
+            raise ValueError("pool and pool_idx belong to pool mode: pass a list of specs")
+        layout = spec.layout
+
+        def env_step(state, act):
+            return fused_train_step_tiles(layout, state, act, horizon=T, reset_horizon=T + 1)
 
     state = batch_reset(layout, B, device)
     obs = torch.empty((T, P * B, H, W, NUM_LAYERS), dtype=torch.int8, device=device)
@@ -114,14 +158,12 @@ def collect_rollout(spec, net: PPONet, config: PPOConfig,
         action[t] = sample(logits, t)
         logp[t] = F.log_softmax(logits, -1).gather(1, action[t][:, None])[:, 0]
         act = action[t].to(torch.int32).reshape(P, B)
-        state, obs_t, sparse[t], shaped[t], events[t] = fused_train_step_tiles(
-            layout, state, act, horizon=T, reset_horizon=T + 1
-        )
+        state, obs_t, sparse[t], shaped[t], events[t] = env_step(state, act)
         if t + 1 < T:  # (P, 26, HW, B) -> (P, B, H, W, 26)
             obs[t + 1].view(P, B, H, W, NUM_LAYERS).copy_(
                 obs_t.view(P, NUM_LAYERS, H, W, B).permute(0, 4, 2, 3, 1)
             )
-    return Rollout(obs, action, logp, value, sparse, shaped, events)
+    return Rollout(obs, action, logp, value, sparse, shaped, events, pool_idx)
 
 
 def make_ppo_eval(spec, num_games: int = 8, horizon: int = 400, device="cuda"):

@@ -6,12 +6,18 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from overcooked_ai_tpu_torch.core import env, layout
 from overcooked_ai_tpu_torch.core.state import State
-from overcooked_ai_tpu_torch.ops import fused_rollout, fused_train
+from overcooked_ai_tpu_torch.core.layout_generator import (
+    LayoutGenerator,
+    gather_lanes,
+    stack_layouts,
+)
+from overcooked_ai_tpu_torch.ops import fused_pool, fused_rollout, fused_train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,6 +30,7 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 assert not any(k.split(".")[0] in ("jax", "flax") for k, v in sys.modules.items() if v)
+print(" ".join(mods))
 print(len(mods))
 """
 
@@ -34,7 +41,10 @@ def test_port_imports_without_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 12  # every module of the package
+    assert int(out.stdout.split()[-1]) >= 14  # every module of the package
+    mods = out.stdout.split()
+    for name in ("core.layout_generator", "ops.fused_pool", "training.ppo"):
+        assert f"overcooked_ai_tpu_torch.{name}" in mods, name
 
 
 def test_no_jax_import_lines():
@@ -64,6 +74,22 @@ def test_kernels_do_not_fall_back():
             spec.layout, state, torch.zeros((2, 4), dtype=torch.int32, device="meta")
         )
     assert fused_rollout.launches == fused_train.launches == 0
+
+
+def test_pool_kernels_do_not_fall_back():
+    """The same for the pool entries, whose lanes are packed on the state's
+    device: on a device without a kernel they raise."""
+    specs = [LayoutGenerator(rng=np.random.RandomState(0)).generate_spec()]
+    lay = gather_lanes(stack_layouts(specs), np.zeros(4, dtype=np.int64))
+    state = State(*(x.to("meta") for x in env.batch_reset(lay, 4, "cpu")))
+    fused_pool.train_launches = fused_pool.rollout_launches = 0
+    with pytest.raises(ValueError, match="no pool rollout kernel"):
+        fused_pool.fused_pool_rollout_random(specs[0], lay, state, 0, 5)
+    with pytest.raises(ValueError, match="no pool train-step kernel"):
+        fused_pool.fused_pool_train_step(
+            specs[0], lay, state, torch.zeros((2, 4), dtype=torch.int32, device="meta")
+        )
+    assert fused_pool.train_launches == fused_pool.rollout_launches == 0
 
 
 def test_cuda_call_without_a_card_raises():
