@@ -9,10 +9,13 @@ Phases, one line each with its seconds:
   3. B2 parity: the whole-horizon rollout kernel against its plain PyTorch
      version, bit for bit, explicit actions and the murmur3 stream;
   4. B1 parity: the fused train-step kernel against its plain version, bit
-     for bit on state, obs, rewards and events, step by step;
+     for bit on state, obs, rewards and events, step by step: the main
+     path's 2048 envs and the eval's 8, ragged batches, old dynamics and
+     `corridor` (HW = 126, the largest shared-memory tile);
   5. the policy path at full width: `collect_rollout` (2048 envs x 400
      steps, PPONet at NetConfig() widths, random weights from a seed) and
-     `make_ppo_eval`, counting B1 launches;
+     `make_ppo_eval`, counting B1 launches; B1's time per launch at 2048
+     and at 8 envs, and a sweep of its tile (envs and threads a block);
   6. env throughput: `rollout_random` at 16384 envs x 4000 steps on B2,
      then B2 held against its plain version at 16384 envs x 450 steps;
   7. B4 parity: the pool whole-horizon kernel against its plain version on
@@ -20,7 +23,9 @@ Phases, one line each with its seconds:
      steps, a ragged batch, the 7x5 outer shape, an old-dynamics pool and 1,
      3 and 4 players;
   8. B3 parity: the pool train-step kernel against its plain version, every
-     step: 2048 envs, a ragged batch, 7x5 and an old-dynamics pool;
+     step: 2048 envs, a ragged batch, 7x5, an old-dynamics pool and a pool
+     whose lanes mix recipe values, cook times, shaping rewards and old
+     dynamics;
   9. the pool policy path at full width: `collect_rollout` over a 64-layout
      generated pool (2048 envs x 400 steps), counting B3 launches, a traced
      short pool rollout, and B3's time per launch;
@@ -44,6 +49,12 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 # 128 FP32 lanes, so half the data sheet's 67e12 float32 rate
 H100_INT32_OPS_PER_S = 33.5e12
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]  # interact-heavy random play
+# a pool whose lanes differ in recipe value, shaping rewards, and old
+# dynamics with another cook time (B3 reads each lane's tables)
+MIXED = [{}, {"delivery_reward": 37},
+         {"rew_shaping_params": {"PLACEMENT_IN_POT_REW": 7, "DISH_PICKUP_REWARD": 1,
+                                 "SOUP_PICKUP_REWARD": 11}},
+         {"old_dynamics": True, "cook_time": 5}]
 
 
 def log(msg: str) -> None:
@@ -57,6 +68,7 @@ def max_err(got, want) -> int:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -152,10 +164,13 @@ def main() -> int:
     # ---- 4. B1 parity, kernel vs plain, every step
     t0 = time.perf_counter()
     b1_err = 0
-    for name, kw, B, T in (("cramped_room", {}, 256, 450),
-                           ("coordination_ring", {"old_dynamics": True}, 256, 450),
-                           ("cramped_room", {}, 2048, 150),  # the main path's shape
-                           ("cramped_room", {}, 37, 60)):  # fewer envs than a block
+    for name, kw, B, T, horizon, reset in (
+            ("cramped_room", {}, 256, 450, 400, 400),
+            ("coordination_ring", {"old_dynamics": True}, 256, 450, 400, 400),
+            ("cramped_room", {}, 2048, 150, 400, 400),  # the main path's shape
+            ("cramped_room", {}, 8, 150, 80, 60),  # the eval's 8 envs, two resets
+            ("cramped_room", {}, 37, 60, 400, 400),  # a ragged last tile
+            ("corridor", {}, 250, 120, 120, 100)):  # HW = 126; urgency from step 80
         lay = from_layout_name(name, **kw).layout
         lay_dev = layout_on(lay, dev)  # the plain version's tables, on the card
         rng = np.random.RandomState(1)
@@ -163,14 +178,16 @@ def main() -> int:
         err = torch.zeros((), dtype=torch.int64, device=dev)
         for _t in range(T):
             a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
-            k = fused_train.fused_train_step_tiles(lay, sk, a, horizon=400)
-            p = fused_train.plain_train_step(lay_dev, sp, a, 400, 400)
+            k = fused_train.fused_train_step_tiles(lay, sk, a, horizon=horizon,
+                                                   reset_horizon=reset)
+            p = fused_train.plain_train_step(lay_dev, sp, a, horizon, reset)
             for g, w in zip((*k[0], *k[1:]), (*p[0], *p[1:])):
                 err = torch.maximum(err, (g.long() - w.long()).abs().max())
             sk, sp = k[0], p[0]
         b1_err = max(b1_err, int(err))
     log(f"[4 B1 parity] {time.perf_counter() - t0:.2f}s cramped_room,coordination_ring(old) "
-        f"B=256 T=450, cramped_room B=2048 T=150 and B=37 T=60, max_abs_err={b1_err}")
+        f"B=256 T=450, cramped_room B=2048 T=150, B=8 T=150 and B=37 T=60, corridor B=250 "
+        f"T=120, max_abs_err={b1_err}")
     if b1_err:
         raise SystemExit("B1 kernel disagrees with its plain version")
 
@@ -211,6 +228,19 @@ def main() -> int:
             return 0
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
+    def kernel_ms(name, fn):
+        """fn's result and the device ms of the profiler rows whose kernel
+        name holds `name`; fails if there are none."""
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+            out = fn()
+            torch.cuda.synchronize()
+        rows = [e for e in p.key_averages() if dev_time(e) > 0]
+        ms = sum(dev_time(e) for e in rows if name in e.key) / 1e3
+        if ms <= 0:
+            raise SystemExit(f"the profiler saw no {name} time; kernels: "
+                             f"{[e.key[:60] for e in rows]}")
+        return out, ms
+
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -224,34 +254,45 @@ def main() -> int:
     log(f"[5 policy trace] 2048x32 wall {t_prof * 1e3:.1f}ms device busy {busy_us / 1e3:.1f}ms "
         f"(idle {1 - busy_us / 1e6 / t_prof:.1%}), B1 {b1_us / 1e3:.2f}ms; top: {top}")
 
-    # B1 time per launch at the main path's shape: device time from the
-    # profiler; CUDA events around the wrapper (an upper bound) if it has none
-    B = 2048
-    state = batch_reset(lay, B, dev)
-    act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
-    n = 50
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fused_train.fused_train_step_tiles(lay, state, act, horizon=400)
-        torch.cuda.synchronize()
-    dev_us = sum(dev_time(e) for e in prof.key_averages() if "train_step_kernel<false>" in e.key)
-    how = "profiler"
-    b1_ms = dev_us / 1e3 / n
-    if b1_ms <= 0:
-        how = "events"
-        _, secs = synced(lambda: [fused_train.fused_train_step_tiles(lay, state, act, horizon=400)
-                                  for _ in range(n)])
-        b1_ms = secs * 1e3 / n
-    lay_dev = layout_on(lay, dev)
-    _, secs = synced(lambda: [fused_train.plain_train_step(lay_dev, state, act, 400, 400)
-                              for _ in range(10)])
-    b1_plain_ms = secs * 1e3 / 10
+    # B1 time per launch at the main path's two shapes, the rollout's 2048
+    # envs and the eval's 8, device time from the profiler; the plain
+    # version's wall per step; the byte bound: the state in and out, the
+    # actions, the obs, the rewards and events
     HW, P = spec.height * spec.width, 2
     state_bytes = (8 * P + 6 * HW + 1) * 4
-    b1_bytes = B * (2 * state_bytes + 4 * P + NUM_LAYERS * P * HW + 12 * P)
-    b1_bound_ms = b1_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[5 B1 timing] {b1_ms:.4f} ms/launch ({how}) plain {b1_plain_ms:.3f} ms "
-        f"bound {b1_bound_ms:.5f} ms ({b1_bytes} bytes) B={B}")
+    env_bytes = 2 * state_bytes + 4 * P + NUM_LAYERS * P * HW + 12 * P
+    lay_dev = layout_on(lay, dev)
+    b1_time = {}
+    for B in (2048, 8):
+        state = batch_reset(lay, B, dev)
+        act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
+        n = 50
+        _, total_ms = kernel_ms("train_step_kernel<false>", lambda: [
+            fused_train.fused_train_step_tiles(lay, state, act, horizon=400) for _ in range(n)])
+        _, secs = synced(lambda: [fused_train.plain_train_step(lay_dev, state, act, 400, 400)
+                                  for _ in range(10)])
+        b1_time[B] = (total_ms / n, secs * 1e3 / 10, B * env_bytes / H100_BYTES_PER_S * 1e3)
+    b1_ms, b1_plain_ms, b1_bound_ms = b1_time[2048]
+    log(f"[5 B1 timing] B=2048 {b1_ms:.4f} ms/launch (profiler) plain {b1_plain_ms:.3f} ms "
+        f"bound {b1_bound_ms:.5f} ms ({2048 * env_bytes} bytes); B=8 {b1_time[8][0]:.4f} "
+        f"ms/launch plain {b1_time[8][1]:.3f} ms bound {b1_time[8][2]:.7f} ms; "
+        f"tile {fused_train.tile_plan(HW, 2048)}")
+
+    # the tile sweep: ms per launch for each envs x threads a block (128
+    # threads a block were the slowest at every tile on the H100, PERF.md)
+    sweep = {}
+    for B in (2048, 8):
+        state = batch_reset(lay, B, dev)
+        act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
+        for envs in (8, 16, 32):
+            for threads in (256, 512):
+                plan = fused_train.tile_plan(HW, B, envs=envs, threads=threads)
+                n = 30
+                _, total_ms = kernel_ms("train_step_kernel<false>", lambda: [
+                    fused_train.launch_kernel(lay, state, act, 400, 400, plan)
+                    for _ in range(n)])
+                sweep[f"B{B}_E{envs}_T{threads}"] = total_ms / n
+    log("[5 B1 tile sweep] ms/launch " + json.dumps({k: round(v, 5) for k, v in sweep.items()}))
 
     # ---- 6. env throughput on B2: the main path's run, then the kernel held
     # against its plain version at the same 16384 envs over 450 steps (one
@@ -288,30 +329,20 @@ def main() -> int:
         f"plain {t_plain * 1e3:.1f} ms, bound {b2_bound_ms:.4f} ms, max_abs_err={b2_err}")
 
     # ---- the layout-pool path (B3, B4): pools as the JAX bench.py makes them
-    def make_pool(n, seed=0, outer_shape=(5, 4), **kw):
+    def make_pool(n, seed=0, outer_shape=(5, 4), cfgs=None, **kw):
+        """n generated layouts; `cfgs`, one per layout, mixes their tables."""
         gen_ = LayoutGenerator(outer_shape=outer_shape, prop_empty=0.95, prop_feats=0.1,
                                num_players=kw.pop("num_players", 2),
                                rng=np.random.RandomState(seed))
-        specs = [gen_.generate_spec(name=f"bench_{i}", **kw) for i in range(n)]
-        return fused_pool.check_pool_uniform(specs), specs
+        specs = [gen_.generate_spec(name=f"bench_{i}", **(cfgs[i] if cfgs else kw))
+                 for i in range(n)]
+        check = fused_pool.check_pool_shape if cfgs else fused_pool.check_pool_uniform
+        return check(specs), specs
 
     def lanes_of(specs, B, seed):
         idx = torch.randint(len(specs), (B,), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(seed))
         return gather_lanes(layout_on(stack_layouts(specs), dev), idx)
-
-    def kernel_ms(name, fn):
-        """fn's result and the device ms of the profiler rows whose kernel
-        name holds `name`; fails if there are none."""
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
-            out = fn()
-            torch.cuda.synchronize()
-        rows = [e for e in p.key_averages() if dev_time(e) > 0]
-        ms = sum(dev_time(e) for e in rows if name in e.key) / 1e3
-        if ms <= 0:
-            raise SystemExit(f"the profiler saw no {name} time; kernels: "
-                             f"{[e.key[:60] for e in rows]}")
-        return out, ms
 
     def reset_counts():
         fused_train.launches = fused_rollout.launches = 0
@@ -361,12 +392,13 @@ def main() -> int:
 
     # ---- 8. B3 parity, kernel vs plain, every step
     t0 = time.perf_counter()
-    b3_err = 0
+    b3_err = mixed_rows = mixed_sparse = mixed_shaped = 0
     for k, (label, (spec0, specs), B, T) in enumerate((
             ("5x4 B=2048", (spec_pool, specs64), 2048, 150),  # the main path's shape
             ("5x4 B=37", (spec_pool, specs64), 37, 60),  # fewer envs than a block
             ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 150),
-            ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 150))):
+            ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 150),
+            ("mixed B=256", make_pool(4, 5, cfgs=MIXED), 256, 150))):
         lay = lanes_of(specs, B, 10 + k)
         pool = fused_pool.pool_data(spec0, lay, dev)
         rng = np.random.RandomState(k)
@@ -380,9 +412,18 @@ def main() -> int:
             for g, w in zip((*kk[0], *kk[1:]), (*pp[0], *pp[1:])):
                 err = torch.maximum(err, (g.long() - w.long()).abs().max())
             sk, sp = kk[0], pp[0]
+            if label.startswith("mixed"):
+                mixed_sparse += int(kk[2].sum())
+                mixed_shaped += int(kk[3].sum())
+        if label.startswith("mixed"):
+            mixed_rows = pool.table_rows.shape[0]
         b3_err = max(b3_err, int(err))
     log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=150 and B=37 T=60, "
-        f"7x5 B=256 T=150, old dynamics B=256 T=150, max_abs_err={b3_err}")
+        f"7x5 B=256 T=150, old dynamics B=256 T=150, mixed tables B=256 T=150 "
+        f"({mixed_rows} distinct rows, shaped={mixed_shaped} sparse={mixed_sparse}), "
+        f"max_abs_err={b3_err}")
+    if mixed_rows != 4 or not mixed_shaped:
+        raise SystemExit("the mixed pool's lanes did not run under four tables with shaping")
     if b3_err:
         raise SystemExit("B3 kernel disagrees with its plain version")
 
@@ -429,11 +470,13 @@ def main() -> int:
     _, secs = synced(lambda: [fused_pool.plain_pool_train_step(pool.layout, state, act, 400, 400)
                               for _ in range(10)])
     b3_plain_ms = secs * 1e3 / 10
-    # B1's bytes (state in and out, actions, obs, rewards and events) and
-    # each lane's reset words; no lane resets here, so no start players
+    # B1's bytes (state in and out, actions, obs, rewards and events), each
+    # lane's reset words and table index, and the pool's table rows once;
+    # no lane resets here, so no start players
     HW, P = spec_pool.height * spec_pool.width, 2
     state_bytes = (8 * P + 6 * HW + 1) * 4
-    b3_bytes = B * (2 * state_bytes + 4 * P + NUM_LAYERS * P * HW + 12 * P + 4 * HW)
+    b3_bytes = (B * (2 * state_bytes + 4 * P + NUM_LAYERS * P * HW + 12 * P + 4 * HW + 4)
+                + 4 * pool.table_rows.numel())
     b3_bound_ms = b3_bytes / H100_BYTES_PER_S * 1e3
     log(f"[9 B3 timing] {b3_ms:.4f} ms/launch (profiler) plain {b3_plain_ms:.3f} ms "
         f"bound {b3_bound_ms:.5f} ms ({b3_bytes} bytes) B={B}")
@@ -475,7 +518,11 @@ def main() -> int:
          "source": "overcooked_ai_tpu_torch/csrc/fused_train.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_train.py:83", "launches": b1_launches,
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
-         "bound_ms": b1_bound_ms, "bound_by": "bytes", "library_ms": None},
+         "bound_ms": b1_bound_ms, "bound_by": "bytes", "library_ms": None,
+         "eval_launches": b1_launches - b1_collect, "eval_ms": b1_time[8][0],
+         "eval_plain_ms": b1_time[8][1], "eval_bound_ms": b1_time[8][2],
+         "tile_envs": fused_train.TILE_ENVS, "block_threads": fused_train.BLOCK_THREADS,
+         "tile_sweep_ms": sweep},
         {"name": "fused_rollout (B2)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_rollout.py:693", "launches": b2_launches,
@@ -492,6 +539,7 @@ def main() -> int:
          "max_abs_err": b4_err, "ms": b4_cmp_ms, "plain_ms": b4_plain_s * 1e3,
          "bound_ms": b4_bound_ms, "bound_by": "operations", "library_ms": None},
     ]}
+    log(f"[done] {time.perf_counter() - t_start:.1f}s wall")
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -19,6 +19,6 @@ extern "C" int oc_fused_pool_rollout(const int* layout_words, const int* reset_w
                                      const StateArrays* out, const int* actions, int* ret, int B,
                                      int num_steps, int horizon, int seed, int use_rng,
                                      void* stream) {
-  return launch_rollout<true>(layout_words, LaneData{reset_words, start_players}, in, out, actions,
-                              ret, B, num_steps, horizon, seed, use_rng, stream);
+  return launch_rollout<true>(layout_words, LaneData{reset_words, start_players, nullptr, nullptr},
+                              in, out, actions, ret, B, num_steps, horizon, seed, use_rng, stream);
 }

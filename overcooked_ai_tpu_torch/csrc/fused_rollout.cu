@@ -16,6 +16,6 @@ extern "C" int oc_layout_words() { return (int)(sizeof(LayoutData) / 4); }
 extern "C" int oc_fused_rollout(const int* layout_words, const StateArrays* in,
                                 const StateArrays* out, const int* actions, int* ret, int B,
                                 int num_steps, int horizon, int seed, int use_rng, void* stream) {
-  return launch_rollout<false>(layout_words, LaneData{nullptr, nullptr}, in, out, actions, ret, B,
+  return launch_rollout<false>(layout_words, LaneData{}, in, out, actions, ret, B,
                                num_steps, horizon, seed, use_rng, stream);
 }

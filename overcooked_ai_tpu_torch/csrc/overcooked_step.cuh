@@ -1,37 +1,43 @@
 // Device code shared by the kernels of this package: the layout block and
 // the per-env Overcooked transition.
 //
-// One thread runs one env. The layout is data, not code: terrain, the start
-// state, the recipe value / time / optimal-value tables, the shaping rewards
-// and the old-dynamics flag arrive as one `LayoutData` block (packed by
-// ops/_build.py:layout_words), which each block copies into shared memory.
-// One build therefore serves every layout; only the player count is a
-// template parameter.
+// One thread runs one env's transition. The layout is data, not code:
+// terrain, the start state, the recipe value / time / optimal-value tables,
+// the shaping rewards and the old-dynamics flag arrive as one `LayoutData`
+// block (packed by ops/_build.py:layout_words), a kernel parameter, which
+// B2 and B4 copy into shared memory. One build therefore serves every
+// layout; only the player count is a template parameter.
+//
+// The recipe tables, shaping rewards and old-dynamics flag form one
+// 52-word `RecipeTables` block, and the step reads them only through the
+// `RecipeTables&` it is given: the layout block's own (`L.tab`) in B2 and
+// B4, a row staged in shared memory in B1 (the layout's) and B3 (each
+// lane's, so a pool's lanes may differ in all of them).
 //
 // The pool kernels (template flag POOL) give every env its own layout. The
-// fields that must be uniform over the pool (tables, shaping rewards, old
-// dynamics, grid shape) still come from the `LayoutData` block; terrain and
-// the start state are the lane's own, from `LaneData` in device memory
-// (packed by ops/fused_pool.py:pool_data). The lane's terrain code rides in
-// bits 28-30 of each of its cell words, as in the TPU pool kernels, so the
-// facing-cell load brings it along.
+// grid shape and player count are uniform over the pool and come from the
+// `LayoutData` block, as do the tables in B4; terrain and the start state
+// are the lane's own, from `LaneData` in device memory (packed by
+// ops/fused_pool.py:pool_data). The lane's terrain code rides in bits 28-30
+// of each of its cell words, as in the TPU pool kernels, so the facing-cell
+// load brings it along.
 //
 // Per env, each grid cell is one packed 32-bit word, kept in the thread's
-// local memory for the whole step (or the whole horizon):
+// local memory (B2, B4) or the block's shared memory (B1, B3):
 //   bits 0-2   object code (OBJ_*)
 //   bits 3-8   three 2-bit soup ingredient slots, in insertion order
 //   bits 9-16  soup cooking tick + 1 (0 = idle / no soup)
 //   bits 17-27 insertion stamp + HW, clamped at 2047 (exact for 2-player
 //              horizon-400 play; the same clamp as the TPU kernels)
-//   bits 28-30 pool kernels: the lane's terrain code (0 in the others)
+//   bits 28-30 the cell's terrain code in B1, B3 and B4 (0 in B2)
 // Players stay unpacked in registers.
 //
 // Semantics: those of core/step.py (the reference get_state_transition),
-// with one documented narrowing shared with the single-layout TPU kernels:
-// cook ticks advance only on the layout's pot cells and start-state soup
-// cells. A soup anywhere else was picked up ready, so it never cooks in
-// reachable play. The pool kernels tick every soup cell, as core/step.py
-// and the TPU pool kernels do.
+// with one documented narrowing in B2, shared with the single-layout TPU
+// kernels: cook ticks advance only on the layout's pot cells and
+// start-state soup cells. A soup anywhere else was picked up ready, so it
+// never cooks in reachable play. B1, B3 and B4 tick every soup cell, as
+// core/step.py and the TPU pool kernels do.
 #pragma once
 
 #include <cstdint>
@@ -70,18 +76,24 @@ enum {
   EV_CATASTROPHIC_TOMATO_POTTING, EV_USELESS_ONION_POTTING, EV_USELESS_TOMATO_POTTING,
 };
 
+// The per-recipe tables and the layout scalars the step reads with them:
+// 52 int32 words, in this order (ops/_build.py:table_words writes them).
+struct RecipeTables {
+  int old_dynamics, rew_pot, rew_dish, rew_soup;
+  int time_table[16];  // [n_onions * 4 + n_tomatoes]
+  int delivery_value[16];
+  int opt_value[16];
+};
+#define OC_TABLE_WORDS 52
+
 // All int32 words, in this order (ops/_build.py:layout_words writes them).
 struct LayoutData {
   int height, width, num_cells, num_players;
-  int old_dynamics, num_pots, rew_pot, rew_dish;
-  int rew_soup, num_pot_cells, num_effect_cells, reserved;
-  int time_table[16];      // [n_onions * 4 + n_tomatoes]
-  int delivery_value[16];
-  int opt_value[16];
+  int num_pots, num_effect_cells;
+  RecipeTables tab;
   int terrain[OC_MAX_HW];
   int reset_word[OC_MAX_HW];           // start state, packed cell words
   int start_player[OC_MAX_P][8];       // x, y, orient, held, slot0-2, tick
-  int pot_cells[OC_MAX_HW];            // cells with a pot
   int effect_cells[OC_MAX_HW];         // pots and start-state soups
 };
 
@@ -104,17 +116,27 @@ struct StateArrays {
 struct LaneData {
   const int* reset_word;    // (HW, B) start-state cell words, terrain in bits 28-30
   const int* start_player;  // (P, 8, B) x, y, orient, held, slot0-2, tick
+  const int* table_rows;    // (K, 52) the distinct RecipeTables (B3; B1: its layout's)
+  const int* table_idx;     // (B,) each lane's row of table_rows (B3 only)
+};
+
+// The pot snapshot taken before any interact, for the usefulness
+// classifiers of the train step: pots holding a full soup, pots holding
+// anything, and the pot count.
+struct PotSnapshot {
+  int n_full, n_nonempty, n_pots;
 };
 
 struct PlayerState {
   int x, y, orient, held, slot[3], tick;
 };
 
-// Terrain code of cell l: the layout block's, or in the pool kernels the
-// lane's own from the cell word.
-template <bool POOL>
+// Terrain code of cell l: the layout block's, or under CELL_TERRAIN the one
+// in bits 28-30 of the cell word (the pool kernels' lane terrain; B1 and B3
+// stage every cell's terrain there).
+template <bool CELL_TERRAIN>
 __device__ __forceinline__ int terrain_at(const LayoutData& L, const uint32_t* cells, int l) {
-  if constexpr (POOL) {
+  if constexpr (CELL_TERRAIN) {
     return (int)(cells[l] >> OC_TERRAIN_SHIFT) & 7;
   } else {
     return L.terrain[l];
@@ -203,13 +225,12 @@ __device__ __forceinline__ void store_env(const LayoutData& L, const StateArrays
   s.t[b] = t;
 }
 
-// Auto-reset to the start state: the layout's, or the lane's own.
+// Auto-reset of the players to the start state: the layout's, or the
+// lane's own.
 template <int NP, bool POOL>
-__device__ __forceinline__ void reset_env(const LayoutData& L, const LaneData& lanes, int B, int b,
-                                          uint32_t* cells, PlayerState* pl) {
+__device__ __forceinline__ void reset_players(const LayoutData& L, const LaneData& lanes, int B,
+                                              int b, PlayerState* pl) {
   const size_t Bs = (size_t)B;
-  for (int l = 0; l < L.num_cells; ++l)
-    cells[l] = (uint32_t)(POOL ? lanes.reset_word[l * Bs + b] : L.reset_word[l]);
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
     int sp[8];
@@ -227,47 +248,60 @@ __device__ __forceinline__ void reset_env(const LayoutData& L, const LaneData& l
   }
 }
 
-// One transition of one env. `t` is the timestep before the step. TRAIN adds
-// the shaped rewards and the event bits (which need `dishes`, the number of
-// dishes on the grid, kept up to date here). POOL reads the lane's terrain
-// from its cell words.
-template <int NP, bool TRAIN, bool POOL>
-__device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* cells,
-                                               PlayerState* pl, int t, const int* act,
-                                               int* sparse, int* shaped, int* events,
-                                               int& dishes) {
+// Auto-reset of a whole env, cells and players.
+template <int NP, bool POOL>
+__device__ __forceinline__ void reset_env(const LayoutData& L, const LaneData& lanes, int B, int b,
+                                          uint32_t* cells, PlayerState* pl) {
+  const size_t Bs = (size_t)B;
+  for (int l = 0; l < L.num_cells; ++l)
+    cells[l] = (uint32_t)(POOL ? lanes.reset_word[l * Bs + b] : L.reset_word[l]);
+  reset_players<NP, POOL>(L, lanes, B, b, pl);
+}
+
+// One pot cell's part of the pot snapshot: adds 1 to `full` for a cooking,
+// ready or full idle soup and 1 to `nonempty` for a cooking, ready or
+// partly filled soup.
+__device__ __forceinline__ void snapshot_pot(const RecipeTables& R, uint32_t w, int& full,
+                                             int& nonempty) {
+  int n_o, n_t;
+  count_slots(w, n_o, n_t);
+  const int n = n_o + n_t;
+  const bool soup = cell_obj(w) == OC_OBJ_SOUP;
+  const int tickp1 = cell_tickp1(w);
+  const bool idle = tickp1 == 0;
+  const bool ready = soup && !idle && tickp1 - 1 >= R.time_table[n_o * 4 + n_t];
+  const bool cooking = soup && !idle && !ready;
+  const bool part = soup && idle && n >= 1 && n < 3;
+  const bool full_idle = soup && idle && n == 3;
+  full += cooking || ready || full_idle;
+  nonempty += ready || cooking || part;
+}
+
+// One cell's environment effect at the end of a step: a soup cooks one tick
+// (under old dynamics a full idle soup starts by itself).
+__device__ __forceinline__ uint32_t cook_cell(const RecipeTables& R, uint32_t w) {
+  if (cell_obj(w) != OC_OBJ_SOUP) return w;
+  int n_o, n_t;
+  count_slots(w, n_o, n_t);
+  int tickp1 = cell_tickp1(w);
+  if (R.old_dynamics && tickp1 == 0 && n_o + n_t == 3) tickp1 = 1;  // auto-start
+  const bool cooking = tickp1 > 0 && tickp1 - 1 < R.time_table[n_o * 4 + n_t];
+  return with_tickp1(w, tickp1 + cooking);
+}
+
+// The players' part of one env's transition: interacts, then movement. `t`
+// is the timestep before the step. TRAIN adds the shaped rewards and the
+// event bits, which need `snap` (taken before the step) and `dishes`, the
+// number of dishes on the grid, kept up to date here. CELL_TERRAIN reads
+// the terrain from the cell words. The cook pass (cook_cell on the pot and
+// start-soup cells, or in the pool kernels on every cell) is the caller's.
+template <int NP, bool TRAIN, bool CELL_TERRAIN>
+__device__ __forceinline__ void env_act(const LayoutData& L, const RecipeTables& R,
+                                        uint32_t* cells, PlayerState* pl, int t, const int* act,
+                                        int* sparse, int* shaped, int* events, int& dishes,
+                                        const PotSnapshot& snap) {
   const int W = L.width;
   const int HW = L.num_cells;
-
-  // pot snapshot before any interact (usefulness classifiers); the pool
-  // kernels find the lane's pots, and count them, by terrain
-  int n_full = 0, n_nonempty = 0, n_pots = L.num_pots;
-  if constexpr (TRAIN && NP == 2) {
-    auto snapshot = [&](uint32_t w) {
-      int n_o, n_t;
-      count_slots(w, n_o, n_t);
-      const int n = n_o + n_t;
-      const bool soup = cell_obj(w) == OC_OBJ_SOUP;
-      const int tickp1 = cell_tickp1(w);
-      const bool idle = tickp1 == 0;
-      const bool ready = soup && !idle && tickp1 - 1 >= L.time_table[n_o * 4 + n_t];
-      const bool cooking = soup && !idle && !ready;
-      const bool part = soup && idle && n >= 1 && n < 3;
-      const bool full_idle = soup && idle && n == 3;
-      n_full += cooking || ready || full_idle;
-      n_nonempty += ready || cooking || part;
-    };
-    if constexpr (POOL) {
-      n_pots = 0;
-      for (int l = 0; l < HW; ++l) {
-        if (terrain_at<POOL>(L, cells, l) != OC_T_POT) continue;
-        ++n_pots;
-        snapshot(cells[l]);
-      }
-    } else {
-      for (int k = 0; k < L.num_pot_cells; ++k) snapshot(cells[L.pot_cells[k]]);
-    }
-  }
 
   // ---- 1. resolve_interacts, one player after another
 #pragma unroll
@@ -279,7 +313,7 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
     const int lin = (pl[i].y + dy) * W + pl[i].x + dx;
     const bool valid = lin >= 0 && lin < HW;  // off-grid reads as empty floor
     const uint32_t w = valid ? cells[lin] : 0u;
-    const int tt = valid ? terrain_at<POOL>(L, cells, lin) : OC_T_EMPTY;
+    const int tt = valid ? terrain_at<CELL_TERRAIN>(L, cells, lin) : OC_T_EMPTY;
 
     const int c_obj = cell_obj(w);
     int c_no, c_nt;
@@ -288,7 +322,7 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
     const int c_tick = cell_tickp1(w) - 1;
     const bool c_soup = c_obj == OC_OBJ_SOUP;
     const bool c_idle = c_tick < 0;
-    const bool c_ready = c_soup && !c_idle && c_tick >= L.time_table[c_no * 4 + c_nt];
+    const bool c_ready = c_soup && !c_idle && c_tick >= R.time_table[c_no * 4 + c_nt];
 
     const int held_i = pl[i].held;
     const bool has_obj = held_i != OC_OBJ_NONE;
@@ -297,7 +331,7 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
     const bool onion_disp = inter && tt == OC_T_ONION_DISP && !has_obj;
     const bool tomato_disp = inter && tt == OC_T_TOMATO_DISP && !has_obj;
     const bool dish_disp = inter && tt == OC_T_DISH_DISP && !has_obj;
-    const bool start_cook = !L.old_dynamics && inter && tt == OC_T_POT && !has_obj && c_soup &&
+    const bool start_cook = !R.old_dynamics && inter && tt == OC_T_POT && !has_obj && c_soup &&
                             c_idle && c_n > 0;
     const bool soup_pickup = inter && tt == OC_T_POT && held_i == OC_OBJ_DISH && c_ready;
     const bool pot_try =
@@ -312,7 +346,7 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
       h_no += pl[i].slot[k] == OC_OBJ_ONION;
       h_nt += pl[i].slot[k] == OC_OBJ_TOMATO;
     }
-    sparse[i] = deliver ? L.delivery_value[h_no * 4 + h_nt] : 0;
+    sparse[i] = deliver ? R.delivery_value[h_no * 4 + h_nt] : 0;
 
     if constexpr (TRAIN) {
       // usefulness classifiers read the state as mutated by earlier players
@@ -320,10 +354,10 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
       bool ing_pickup_useful = false, ing_drop_useful = false;
       if constexpr (NP == 2) {
         const int other_held = pl[1 - i].held;
-        const bool all_pots_full = n_full == n_pots;
+        const bool all_pots_full = snap.n_full == snap.n_pots;
         const int player_dishes = (pl[0].held == OC_OBJ_DISH) + (pl[1].held == OC_OBJ_DISH);
-        dish_pickup_useful = dishes == 0 && player_dishes < n_nonempty;
-        dish_drop_useful = n_full == 0 && other_held != OC_OBJ_ONION;
+        dish_pickup_useful = dishes == 0 && player_dishes < snap.n_nonempty;
+        dish_drop_useful = snap.n_full == 0 && other_held != OC_OBJ_ONION;
         ing_pickup_useful = !(all_pots_full && other_held != OC_OBJ_DISH);
         ing_drop_useful = all_pots_full && other_held != OC_OBJ_DISH;
       }
@@ -342,8 +376,8 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
       const int new_no = old_no + (held_i == OC_OBJ_ONION);
       const int new_nt = old_nt + (held_i == OC_OBJ_TOMATO);
       // a potting always leaves at most 3 items, so (new_no, new_nt) stays in the table
-      const int old_val = L.opt_value[old_no * 4 + old_nt];
-      const int new_val = pot_ok ? L.opt_value[new_no * 4 + new_nt] : 0;
+      const int old_val = R.opt_value[old_no * 4 + old_nt];
+      const int new_val = pot_ok ? R.opt_value[new_no * 4 + new_nt] : 0;
       const bool optimal = old_val == new_val;
       const bool viable = new_val > 0;
       const bool catastrophic = old_val > 0 && new_val == 0;
@@ -376,8 +410,8 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
       m |= (uint32_t)(pot_onion && useless) << EV_USELESS_ONION_POTTING;
       m |= (uint32_t)(pot_tomato && useless) << EV_USELESS_TOMATO_POTTING;
       events[i] = (int)m;
-      shaped[i] = (dish_disp && dish_pickup_useful ? L.rew_dish : 0) +
-                  (soup_pickup ? L.rew_soup : 0) + (pot_ok ? L.rew_pot : 0);
+      shaped[i] = (dish_disp && dish_pickup_useful ? R.rew_dish : 0) +
+                  (soup_pickup ? R.rew_soup : 0) + (pot_ok ? R.rew_pot : 0);
       dishes += (counter_drop && held_i == OC_OBJ_DISH) - (counter_pickup && c_obj == OC_OBJ_DISH);
     }
 
@@ -444,7 +478,8 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
     const int cx = pl[i].x + (a == 2) - (a == 3);
     const int cy = pl[i].y + (a == 1) - (a == 0);
     const int cl = cy * W + cx;
-    const bool ok = is_dir && cl >= 0 && cl < HW && terrain_at<POOL>(L, cells, cl) == OC_T_EMPTY;
+    const bool ok =
+        is_dir && cl >= 0 && cl < HW && terrain_at<CELL_TERRAIN>(L, cells, cl) == OC_T_EMPTY;
     if (is_dir) pl[i].orient = a;
     nx[i] = ok ? cx : pl[i].x;
     ny[i] = ok ? cy : pl[i].y;
@@ -466,22 +501,25 @@ __device__ __forceinline__ void env_transition(const LayoutData& L, uint32_t* ce
       pl[i].y = ny[i];
     }
   }
+}
 
-  // ---- 3. environment effects: on the pot and start-soup cells, or in the
-  // pool kernels on every cell
-  auto cook = [&](int l) {
-    const uint32_t w = cells[l];
-    if (cell_obj(w) != OC_OBJ_SOUP) return;
-    int n_o, n_t;
-    count_slots(w, n_o, n_t);
-    int tickp1 = cell_tickp1(w);
-    if (L.old_dynamics && tickp1 == 0 && n_o + n_t == 3) tickp1 = 1;  // auto-start
-    const bool cooking = tickp1 > 0 && tickp1 - 1 < L.time_table[n_o * 4 + n_t];
-    cells[l] = with_tickp1(w, tickp1 + cooking);
-  };
+// One whole transition of one env by one thread, the cook pass included
+// (B2, B4).
+template <int NP, bool POOL>
+__device__ __forceinline__ void env_transition(const LayoutData& L, const RecipeTables& R,
+                                               uint32_t* cells, PlayerState* pl, int t,
+                                               const int* act, int* sparse) {
+  int dishes = 0;
+  const PotSnapshot snap{0, 0, 0};
+  env_act<NP, false, POOL>(L, R, cells, pl, t, act, sparse, nullptr, nullptr, dishes, snap);
+  // environment effects: on the pot and start-soup cells, or in the pool
+  // kernels on every cell
   if constexpr (POOL) {
-    for (int l = 0; l < HW; ++l) cook(l);
+    for (int l = 0; l < L.num_cells; ++l) cells[l] = cook_cell(R, cells[l]);
   } else {
-    for (int k = 0; k < L.num_effect_cells; ++k) cook(L.effect_cells[k]);
+    for (int k = 0; k < L.num_effect_cells; ++k) {
+      const int l = L.effect_cells[k];
+      cells[l] = cook_cell(R, cells[l]);
+    }
   }
 }

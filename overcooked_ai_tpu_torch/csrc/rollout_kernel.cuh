@@ -38,14 +38,14 @@ __global__ void rollout_kernel(const __grid_constant__ LayoutData lay, LaneData 
   PlayerState pl[NP];
   int t = load_env<NP, POOL>(L, lanes, in, B, b, cells, pl);
   const uint32_t seed_base = seed * 0x9E3779B9u;
-  int total = 0, dishes = 0;
+  int total = 0;
   int act[NP], sparse[NP];
   for (int k = 0; k < num_steps; ++k) {
 #pragma unroll
     for (int i = 0; i < NP; ++i)
       act[i] = use_rng ? hash_action(seed_base, (uint32_t)b, (uint32_t)i, (uint32_t)k)
                        : actions[((size_t)k * NP + i) * B + b];
-    env_transition<NP, false, POOL>(L, cells, pl, t, act, sparse, nullptr, nullptr, dishes);
+    env_transition<NP, POOL>(L, L.tab, cells, pl, t, act, sparse);
 #pragma unroll
     for (int i = 0; i < NP; ++i) total += sparse[i];
     if (++t >= horizon) {

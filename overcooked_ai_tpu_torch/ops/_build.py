@@ -15,8 +15,9 @@ by a hash of the sources and flags, so a warm run loads it without
 rebuilding and an edited source rebuilds. Nothing here runs at import.
 
 This module also owns the Python side of the C interface: the `LayoutData`
-word block of `csrc/overcooked_step.cuh` (`layout_words`) and the
-`StateArrays` pointer struct (`state_arrays`).
+word block of `csrc/overcooked_step.cuh` (`layout_words`), its 52-word
+`RecipeTables` part (`table_words`, also per lane) and the `StateArrays`
+pointer struct (`state_arrays`).
 """
 
 from __future__ import annotations
@@ -49,14 +50,20 @@ LINK_FLAGS = ["-shared"]
 MAX_HW = 128
 MAX_P = 4
 SEQ_MAX = 2047
-_HEADER_WORDS = 12
-LAYOUT_WORDS = _HEADER_WORDS + 3 * 16 + 2 * MAX_HW + 8 * MAX_P + 2 * MAX_HW
+HEADER_WORDS = 6  # then the RecipeTables words
+# the layout fields of a `RecipeTables` block, in its word order
+TABLE_FIELDS = ("old_dynamics", "placement_in_pot_rew", "dish_pickup_rew", "soup_pickup_rew",
+                "time_table", "delivery_value", "opt_value")
+TABLE_WORDS = 4 + 3 * 16
+LAYOUT_WORDS = HEADER_WORDS + TABLE_WORDS + 2 * MAX_HW + 8 * MAX_P + MAX_HW
 
 _lib = None  # the loaded library, once per process
 # id(layout) -> (layout, its LayoutData words); holding the layout keeps
 # its id from being reused while the entry lives
 _words_cache: dict[int, tuple[Layout, np.ndarray]] = {}
 _WORDS_CACHE_SIZE = 64
+# (id(layout), device) -> (layout, its RecipeTables words on the device)
+_rows_cache: dict[tuple[int, str], tuple[Layout, torch.Tensor]] = {}
 
 
 def _sources():
@@ -146,11 +153,12 @@ def load():
         lib.oc_layout_words.restype = i
         lib.oc_fused_rollout.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.oc_fused_rollout.restype = i
-        lib.oc_fused_train_step.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.oc_fused_train_step.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.oc_fused_train_step.restype = i
         lib.oc_fused_pool_rollout.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.oc_fused_pool_rollout.restype = i
-        lib.oc_fused_pool_train_step.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.oc_fused_pool_train_step.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                                 i, i, i, p]
         lib.oc_fused_pool_train_step.restype = i
         if lib.oc_layout_words() != LAYOUT_WORDS:
             raise RuntimeError(
@@ -178,6 +186,29 @@ def pack_cell_words(obj, soup_ing, soup_tick, obj_seq, num_cells: int) -> torch.
     )
 
 
+def table_words(layout: Layout) -> torch.Tensor:
+    """The `RecipeTables` words of a layout, (52,), or of a per-lane layout,
+    (B, 52): int32, on the layout's device (the CPU for numpy leaves)."""
+    lead = tuple(layout.terrain.shape[2:])  # () or (B,)
+    cols = [torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+            .to(torch.int32).reshape(-1, *lead)
+            for x in (getattr(layout, name) for name in TABLE_FIELDS)]
+    return torch.cat(cols).movedim(0, -1).contiguous()
+
+
+def table_row_on(layout: Layout, device) -> torch.Tensor:
+    """The layout's `RecipeTables` words as a (1, 52) int32 tensor on
+    `device`, copied there once per layout object and device: B1 reads its
+    tables from device memory, as B3 reads the lanes' rows."""
+    key = (id(layout), str(device))
+    hit = _rows_cache.get(key)
+    if hit is None:
+        if len(_rows_cache) >= _WORDS_CACHE_SIZE:
+            _rows_cache.clear()
+        hit = _rows_cache[key] = (layout, table_words(layout).reshape(1, -1).to(device))
+    return hit[1]
+
+
 def layout_words(layout: Layout) -> np.ndarray:
     """`Layout` -> the int32 `LayoutData` block the kernels read, built once
     per layout object (read-only; a launch passes it by pointer)."""
@@ -201,19 +232,13 @@ def _build_layout_words(layout: Layout) -> np.ndarray:
         raise ValueError(f"kernels take HW <= {MAX_HW} and 1 <= P <= {MAX_P}, got {HW}, {P}")
     terrain = np.asarray(layout.terrain, np.int64).reshape(HW)
     s_obj = np.asarray(start.obj).reshape(HW)
-    pots = np.nonzero(terrain == TERRAIN_POT)[0]
     effects = np.nonzero((terrain == TERRAIN_POT) | (s_obj == OBJ_SOUP))[0]
 
     words = np.zeros(LAYOUT_WORDS, np.int64)
-    words[:_HEADER_WORDS] = [
-        H, W, HW, P, int(bool(layout.old_dynamics)), int(layout.num_pots),
-        int(layout.placement_in_pot_rew), int(layout.dish_pickup_rew),
-        int(layout.soup_pickup_rew), len(pots), len(effects), 0,
-    ]
-    o = _HEADER_WORDS
-    for table in (layout.time_table, layout.delivery_value, layout.opt_value):
-        words[o:o + 16] = np.asarray(table).reshape(16)
-        o += 16
+    words[:HEADER_WORDS] = [H, W, HW, P, int(layout.num_pots), len(effects)]
+    o = HEADER_WORDS
+    words[o:o + TABLE_WORDS] = table_words(layout).numpy()
+    o += TABLE_WORDS
     words[o:o + HW] = terrain
     o += MAX_HW
     cell = to_torch(start, "cpu")
@@ -229,8 +254,6 @@ def _build_layout_words(layout: Layout) -> np.ndarray:
     )  # (P, 8)
     words[o:o + 8 * P] = players.reshape(-1)
     o += 8 * MAX_P
-    words[o:o + len(pots)] = pots
-    o += MAX_HW
     words[o:o + len(effects)] = effects
     return words.astype(np.int32)
 

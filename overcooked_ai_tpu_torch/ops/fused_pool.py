@@ -9,26 +9,31 @@ reaches the kernels as data, packed once per rollout by `pool_data`:
 
   * the lane's start-state cell words, the terrain code in bits 28-30
     ((HW, B) int32, the cell word of `csrc/overcooked_step.cuh`);
-  * the lane's start players, 8 words each ((P, 8, B) int32).
+  * the lane's start players, 8 words each ((P, 8, B) int32);
+  * the pool's distinct recipe tables, shaping rewards and old-dynamics
+    flags as `RecipeTables` rows ((K, 52) int32), and each lane's row
+    ((B,) int32).
 
-What must stay uniform over the pool, the recipe tables, the shaping
-rewards, the old-dynamics flag, the grid shape and the player count, goes
-to the kernels as the first layout's `LayoutData` block. `check_pool_uniform`
-(a list of specs) and `pool_data` (the lanes themselves) raise ValueError
-for a pool that breaks this, so a kernel never runs a lane on another
-lane's tables. Every public entry packs with `pool_data` or refuses pool
-data that `pool_data` did not make.
+The grid shape and the player count must be uniform over the pool; they
+reach the kernels as the representative spec's `LayoutData` block.
 
   * `fused_pool_train_step` / `fused_pool_train_step_tiles`: B3
-    (`csrc/fused_pool_train.cu`), one training env step, as B1.
+    (`csrc/fused_pool_train.cu`), one training env step, as B1. Each lane
+    steps under its own tables, so a pool may mix recipe values, cook
+    times, shaping rewards and old dynamics, as the JAX learner's XLA pool
+    path allows.
   * `fused_pool_rollout_random` / `fused_pool_rollout_actions`: B4
     (`csrc/fused_pool_rollout.cu`), the whole horizon in one launch, as B2,
-    auto-resetting each lane to its own start.
+    auto-resetting each lane to its own start. B4 reads the representative
+    spec's tables for every lane, so these entries, like `check_pool_uniform`
+    and the JAX B4 entry, refuse a pool whose lanes differ from it there
+    (ValueError, not `assert`, so `python -O` refuses it too).
 
-On a CPU tensor the entries run the plain versions, B1's and B2's plain
-versions on the per-lane layout (`core.step` and `core.encoding` read every
-layout field per lane); that is also what the kernels are held against on
-the card. A tensor on any other device raises.
+Every public entry packs with `pool_data` or refuses pool data that
+`pool_data` did not make. On a CPU tensor the entries run the plain
+versions, B1's and B2's plain versions on the per-lane layout (`core.step`
+and `core.encoding` read every layout field per lane); that is also what the
+kernels are held against on the card. A tensor on any other device raises.
 """
 
 from __future__ import annotations
@@ -44,37 +49,43 @@ from overcooked_ai_tpu_torch.core.layout import Layout, layout_on, per_lane
 from overcooked_ai_tpu_torch.core.state import State
 from overcooked_ai_tpu_torch.ops import _build
 from overcooked_ai_tpu_torch.ops.fused_rollout import _M32, plain_rollout
-from overcooked_ai_tpu_torch.ops.fused_train import obs_tiles_to_nhwc, plain_train_step
+from overcooked_ai_tpu_torch.ops.fused_train import (
+    obs_tiles_to_nhwc,
+    plain_train_step,
+    tile_plan,
+)
 
 train_launches = 0  # B3 launches since the caller last set it to 0
 rollout_launches = 0  # B4 launches since the caller last set it to 0
-
-# layout fields the kernels take from the first layout for every lane
-UNIFORM_FIELDS = (
-    "delivery_value", "time_table", "opt_value", "old_dynamics",
-    "placement_in_pot_rew", "dish_pickup_rew", "soup_pickup_rew",
-)
 
 # the plain versions: B1's and B2's on a per-lane layout
 plain_pool_train_step = plain_train_step
 plain_pool_rollout = plain_rollout
 
 
-def check_pool_uniform(specs):
-    """Raise ValueError unless the pool's layouts share grid shape, player
-    count, recipe tables, shaping rewards and old-dynamics flag. Returns the
-    representative spec, specs[0]."""
+def check_pool_shape(specs):
+    """Raise ValueError unless the pool's layouts share grid shape and player
+    count. Returns the representative spec, specs[0]."""
     s0 = specs[0]
     for s in specs[1:]:
         if (s.height, s.width, s.num_players) != (s0.height, s0.width, s0.num_players):
             raise ValueError(
                 f"pool layouts must share grid shape and player count ({s.name!r} differs)"
             )
-        for name in UNIFORM_FIELDS:
+    return s0
+
+
+def check_pool_uniform(specs):
+    """Raise ValueError unless the pool's layouts share grid shape, player
+    count, recipe tables, shaping rewards and old-dynamics flag, as B4
+    needs. Returns the representative spec, specs[0]."""
+    s0 = check_pool_shape(specs)
+    for s in specs[1:]:
+        for name in _build.TABLE_FIELDS:
             if not np.array_equal(np.asarray(getattr(s.layout, name)),
                                   np.asarray(getattr(s0.layout, name))):
                 raise ValueError(
-                    f"the pool kernels need a uniform {name} across the pool "
+                    f"the pool rollout kernel needs a uniform {name} across the pool "
                     f"(layout {s.name!r} differs)"
                 )
     return s0
@@ -83,18 +94,21 @@ def check_pool_uniform(specs):
 class LanePool(NamedTuple):
     """A per-lane layout packed for the pool kernels by `pool_data`."""
 
-    spec0: object  # the representative spec whose uniform fields every lane shares
+    spec0: object  # the representative spec: grid shape, player count, B4's tables
     layout: Layout  # per-lane layout (leaves ending in B), on the pool's device
     words: np.ndarray  # spec0's LayoutData block
     reset_words: torch.Tensor  # (HW, B) int32 start cells, terrain in bits 28-30
     start_players: torch.Tensor  # (P, 8, B) int32 x, y, orient, held, slots, tick
+    table_rows: torch.Tensor  # (K, 52) int32 the lanes' distinct RecipeTables words
+    table_idx: torch.Tensor  # (B,) int32 each lane's row of table_rows
+    uniform: bool  # every lane's tables are spec0's (what B4 needs)
 
 
 def pool_data(spec0, lay: Layout, device) -> LanePool:
     """Check a per-lane layout against `spec0` and pack it for the kernels,
     with torch ops on `device`. Once per rollout: the lanes' layouts do not
-    change within it. Raises ValueError if a lane's uniform fields differ
-    from spec0's, or the grid shape or player count does."""
+    change within it. Raises ValueError if the lanes' grid shape or player
+    count differs from spec0's; their tables may differ."""
     if not per_lane(lay):
         raise ValueError("want a per-lane layout (leaves ending in the env batch axis)")
     lay = layout_on(lay, device)
@@ -102,17 +116,14 @@ def pool_data(spec0, lay: Layout, device) -> LanePool:
     P = lay.start_state.pos.shape[0]
     if (H, W, P) != (spec0.height, spec0.width, spec0.num_players):
         raise ValueError(f"lanes of shape {(H, W)} with {P} players, spec0 {spec0.name!r} differs")
-    same = torch.ones((), dtype=torch.bool, device=device)
-    for name in UNIFORM_FIELDS:
-        want = torch.as_tensor(np.asarray(getattr(spec0.layout, name)), dtype=torch.int32,
-                               device=device)
-        same &= (getattr(lay, name) == want[..., None]).all()
-    if not bool(same):
-        raise ValueError(
-            "the pool kernels need every lane's recipe tables, shaping rewards and "
-            f"old_dynamics flag to equal spec0's ({spec0.name!r})"
-        )
     words = _build.layout_words(spec0.layout)  # also checks HW and P against the kernels
+    lane_rows = _build.table_words(lay)  # (B, 52)
+    row0 = _build.table_row_on(spec0.layout, device)
+    uniform = bool((lane_rows == row0).all())
+    if uniform:  # a generated pool: one row, spec0's
+        rows, idx = row0, torch.zeros(B, dtype=torch.int32, device=device)
+    else:
+        rows, idx = torch.unique(lane_rows, dim=0, return_inverse=True)
     HW = H * W
     st = lay.start_state
     cells = _build.pack_cell_words(st.obj.reshape(HW, B), st.soup_ing.reshape(HW, 3, B),
@@ -122,7 +133,8 @@ def pool_data(spec0, lay: Layout, device) -> LanePool:
         [st.pos, st.orient[:, None], st.held[:, None], st.held_soup, st.held_soup_tick[:, None]],
         dim=1,
     ).contiguous()  # (P, 8, B)
-    return LanePool(spec0, lay, words, reset_words, start_players)
+    return LanePool(spec0, lay, words, reset_words, start_players, rows.contiguous(),
+                    idx.to(torch.int32), uniform)
 
 
 def _lane_pointers(pool: LanePool, state: State):
@@ -132,7 +144,8 @@ def _lane_pointers(pool: LanePool, state: State):
     H, W = pool.layout.terrain.shape[:2]
     _build.check_state(state, pool.layout, B, dev)
     if (pool.reset_words.device != dev or tuple(pool.reset_words.shape) != (H * W, B)
-            or tuple(pool.start_players.shape) != (P, 8, B)):
+            or tuple(pool.start_players.shape) != (P, 8, B)
+            or tuple(pool.table_idx.shape) != (B,)):
         raise ValueError(f"pool data for {tuple(pool.reset_words.shape)} on "
                          f"{pool.reset_words.device}, state of {B} envs on {dev}")
     return pool.reset_words.data_ptr(), pool.start_players.data_ptr()
@@ -156,13 +169,15 @@ def _launch_train(pool: LanePool, state: State, actions: torch.Tensor, horizon: 
     sparse, shaped, events = (
         torch.empty((num_players, batch), dtype=torch.int32, device=dev) for _ in range(3)
     )
+    plan = tile_plan(HW, batch, pool=True)
     with torch.cuda.device(dev):
         err = lib.oc_fused_pool_train_step(
-            pool.words.ctypes.data, reset_ptr, start_ptr,
+            pool.words.ctypes.data, reset_ptr, start_ptr, pool.table_rows.data_ptr(),
+            pool.table_idx.data_ptr(),
             ctypes.byref(_build.state_arrays(state)), ctypes.byref(_build.state_arrays(out)),
             actions.data_ptr(), obs.data_ptr(), sparse.data_ptr(), shaped.data_ptr(),
-            events.data_ptr(), batch, horizon, reset_horizon,
-            torch.cuda.current_stream(dev).cuda_stream,
+            events.data_ptr(), batch, horizon, reset_horizon, plan.envs, plan.threads,
+            plan.smem_bytes, plan.vec, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(err, "fused_pool_train_step")
     train_launches += 1
@@ -243,6 +258,11 @@ def _fused_pool_rollout(spec0, lay, state, seed, actions, num_steps, horizon):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no pool rollout kernel for device {dev}")
     pool = pool_data(spec0, lay, dev)
+    if not pool.uniform:
+        raise ValueError(
+            "the pool rollout kernel needs every lane's recipe tables, shaping rewards and "
+            f"old_dynamics flag to equal spec0's ({spec0.name!r})"
+        )
     if dev.type == "cpu":
         return plain_pool_rollout(pool.layout, state, seed, actions, num_steps, horizon)
     return _launch_rollout(pool, state, seed, actions, num_steps, horizon)

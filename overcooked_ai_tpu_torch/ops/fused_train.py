@@ -16,6 +16,10 @@ On a CPU tensor the wrappers run the plain version (`core.env.env_step` +
 `core.encoding.lossless_encode`), which is also what the kernel is held
 against on the card. A tensor on any other device raises.
 
+The kernel runs a block per tile of `TILE_ENVS` envs; `tile_plan` sizes the
+launch (blocks, threads, dynamic shared memory, obs store width) here, and
+the C entry refuses a plan that does not match the layout and batch.
+
 Encoding channel order (reference LAYERS): 0 self loc, 1 other loc, 2-5
 self orientation, 6-9 other orientation, 10-15 static terrain
 (pot/counter/onion/tomato/dish/serve), 16-17 onions/tomatoes in idle pot
@@ -26,6 +30,7 @@ soups, 18-19 onions/tomatoes in active/other soups, 20 cook time remaining,
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +43,49 @@ from overcooked_ai_tpu_torch.ops import _build
 from overcooked_ai_tpu_torch.ops.fused_rollout import clamp_stamps
 
 launches = 0  # kernel launches since the caller last set it to 0
+
+# The tile plan (csrc/train_kernel.cuh). TILE_ENVS and BLOCK_THREADS are
+# the fastest of 8, 16 and 32 envs and 128, 256 and 512 threads a block for
+# the main path's launches, 400 at 2048 envs and 400 at 8, on the H100
+# (chip_smoke.py's sweep, PERF.md). On the largest layouts (from 125 cells
+# in B3, at 128 in B1) a tile of 32 envs passes the shared memory a block
+# may have, and the plan halves it.
+TILE_ENVS = 32
+BLOCK_THREADS = 512
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may have on an H100
+_ENV_ROWS = 8  # per-env scalars in shared memory
+
+
+class TilePlan(NamedTuple):
+    """One launch of the train-step kernel."""
+
+    envs: int  # envs a block (E)
+    blocks: int
+    threads: int  # threads a block
+    smem_bytes: int  # dynamic shared memory a block
+    vec: int  # bytes a store of obs: the largest power of two <= 16 dividing E and B
+
+
+def tile_smem_bytes(envs: int, num_cells: int, pool: bool, num_players: int = 2) -> int:
+    """Dynamic shared memory of a block: per env its scalars, players, under
+    `pool` its table row, and its cell words at an odd stride; one table row
+    otherwise; then, from a 16-byte boundary, the obs tile
+    (csrc/train_kernel.cuh tile_smem_bytes)."""
+    words = (envs * (_ENV_ROWS + 8 * num_players + (_build.TABLE_WORDS if pool else 0)
+                     + (num_cells | 1)) + (0 if pool else _build.TABLE_WORDS))
+    return -(-words * 4 // 16) * 16 + num_players * NUM_LAYERS * num_cells * envs
+
+
+def tile_plan(num_cells: int, batch: int, pool: bool = False, envs: int = TILE_ENVS,
+              threads: int = BLOCK_THREADS) -> TilePlan:
+    """The launch for `batch` envs of `num_cells` cells. A tile whose shared
+    memory would pass the card's limit is halved until it fits."""
+    while envs > 1 and tile_smem_bytes(envs, num_cells, pool) > SMEM_PER_BLOCK:
+        envs //= 2
+    vec = 16
+    while envs % vec or batch % vec:
+        vec //= 2
+    return TilePlan(envs, -(-batch // envs), threads, tile_smem_bytes(envs, num_cells, pool), vec)
 
 
 def pack_events(events: torch.Tensor) -> torch.Tensor:
@@ -73,8 +121,11 @@ def plain_train_step(layout: Layout, state: State, actions: torch.Tensor, horizo
     )
 
 
-def _launch(layout: Layout, state: State, actions: torch.Tensor, horizon: int,
-            reset_horizon: int):
+def launch_kernel(layout: Layout, state: State, actions: torch.Tensor, horizon: int,
+                  reset_horizon: int, plan: TilePlan | None = None):
+    """The kernel alone, on CUDA tensors; returns what
+    `fused_train_step_tiles` does. `plan` replaces `tile_plan`'s (the
+    smoke's sweep of the tile size)."""
     global launches
     dev = state.t.device
     num_players, batch = state.held.shape
@@ -92,14 +143,15 @@ def _launch(layout: Layout, state: State, actions: torch.Tensor, horizon: int,
     sparse, shaped, events = (
         torch.empty((num_players, batch), dtype=torch.int32, device=dev) for _ in range(3)
     )
+    plan = plan or tile_plan(H * W, batch)
     with torch.cuda.device(dev):
         err = lib.oc_fused_train_step(
-            words.ctypes.data,
+            words.ctypes.data, _build.table_row_on(layout, dev).data_ptr(),
             ctypes.byref(_build.state_arrays(state)),
             ctypes.byref(_build.state_arrays(out)),
             actions.data_ptr(), obs.data_ptr(), sparse.data_ptr(), shaped.data_ptr(),
-            events.data_ptr(), batch, horizon, reset_horizon,
-            torch.cuda.current_stream(dev).cuda_stream,
+            events.data_ptr(), batch, horizon, reset_horizon, plan.envs, plan.threads,
+            plan.smem_bytes, plan.vec, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(err, "fused_train_step")
     launches += 1
@@ -118,7 +170,7 @@ def fused_train_step_tiles(layout: Layout, state: State, actions: torch.Tensor,
     if dev.type == "cpu":
         return plain_train_step(layout, state, actions, horizon, reset_horizon)
     if dev.type == "cuda":
-        return _launch(layout, state, actions, horizon, reset_horizon)
+        return launch_kernel(layout, state, actions, horizon, reset_horizon)
     raise ValueError(f"no train-step kernel for device {dev}")
 
 

@@ -11,7 +11,9 @@ the start state and never auto-resets. It returns what GAE will need.
 Given a list of specs it runs in pool mode, the JAX learner's variable-MDP
 mode: each env lane draws a layout of the pool (`pool_idx`), starts from
 that layout's start state, and every step is one launch of the pool kernel
-(`ops/fused_pool.py`, B3) on the lanes' packed layouts.
+(`ops/fused_pool.py`, B3) on the lanes' packed layouts. The pool's layouts
+share grid shape and player count; their recipe tables, shaping rewards
+and old-dynamics flags may differ, lane by lane.
 
 `make_ppo_eval` is the JAX `make_ppo_eval`: the mean sparse return of
 `num_games` self-play games, with its env step on B1 too.
@@ -34,7 +36,7 @@ from overcooked_ai_tpu_torch.core.env import batch_reset
 from overcooked_ai_tpu_torch.core.layout import Layout, layout_on
 from overcooked_ai_tpu_torch.core.layout_generator import gather_lanes, stack_layouts
 from overcooked_ai_tpu_torch.ops.fused_pool import (
-    check_pool_uniform,
+    check_pool_shape,
     fused_pool_train_step_tiles,
     pool_data,
 )
@@ -116,7 +118,7 @@ def collect_rollout(spec, net: PPONet, config: PPOConfig,
     pool_mode = isinstance(spec, (list, tuple))
     if pool_mode:
         specs = list(spec)
-        spec = check_pool_uniform(specs)
+        spec = check_pool_shape(specs)
     P, B, T = spec.num_players, config.num_envs, config.horizon
     if P != 2:
         raise ValueError("PPO self-play is 2-player")

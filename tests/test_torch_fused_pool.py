@@ -6,8 +6,11 @@ entries (`fused_pool_rollout_actions`, `fused_pool_rollout_random`) against
 the JAX pool kernel in Pallas interpret mode (B=8, block_b=4, as
 tests/test_fused_pool.py runs it), across per-lane auto-resets, for both
 outer shapes and for a uniform old-dynamics pool. Every output is an integer
-and must match bit for bit. A pool whose recipe tables differ raises
-ValueError from every public entry, under `python -O` too. B3 is in
+and must match bit for bit. A pool whose recipe tables, shaping rewards or
+old-dynamics flags differ runs in the B3 entries and pool-mode
+`collect_rollout`, which read each lane's tables, and raises ValueError
+from `check_pool_uniform` and the B4 entries, under `python -O` too; its
+packed table rows give every lane its own. B3 is in
 tests/test_torch_fused_pool_train.py.
 """
 
@@ -30,11 +33,17 @@ from overcooked_ai_tpu_torch.core import layout_generator as gen
 from overcooked_ai_tpu_torch.core.encoding import lossless_encode
 from overcooked_ai_tpu_torch.core.env import batch_reset, env_step
 from overcooked_ai_tpu_torch.core.state import State
-from overcooked_ai_tpu_torch.ops import fused_pool
+from overcooked_ai_tpu_torch.ops import _build, fused_pool
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, BLOCK_B = 8, 4
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]
+# lanes that differ in recipe value, shaping rewards, and old dynamics with
+# another cook time
+MIXED = [{}, {"delivery_reward": 37},
+         {"rew_shaping_params": {"PLACEMENT_IN_POT_REW": 7, "DISH_PICKUP_REWARD": 1,
+                                 "SOUP_PICKUP_REWARD": 11}},
+         {"old_dynamics": True, "cook_time": 5}]
 
 
 def make_pools(n=6, seed=0, outer_shape=(5, 4), **cfg):
@@ -158,6 +167,26 @@ def test_old_dynamics_pool_matches_jax():
     np.testing.assert_array_equal(ret.numpy(), total)
 
 
+def test_packed_table_rows_give_each_lane_its_own():
+    g = gen.LayoutGenerator(rng=np.random.RandomState(5))
+    specs = [g.generate_spec(name=f"m{i}", **cfg) for i, cfg in enumerate(MIXED)]
+    idx = np.array([3, 0, 1, 1, 2, 3, 0, 2, 2])
+    pool = fused_pool.pool_data(specs[0], gen.gather_lanes(gen.stack_layouts(specs), idx), "cpu")
+    assert pool.table_rows.shape == (len(MIXED), _build.TABLE_WORDS)
+    assert pool.table_rows.dtype == pool.table_idx.dtype == torch.int32
+    assert not pool.uniform
+    for b, i in enumerate(idx):
+        want = _build.table_words(specs[i].layout)
+        assert torch.equal(pool.table_rows[pool.table_idx[b]], want), b
+        # the row is the RecipeTables part of the lane's own LayoutData block
+        h = _build.HEADER_WORDS
+        np.testing.assert_array_equal(_build.layout_words(specs[i].layout)[h:h + 52],
+                                      want.numpy())
+    same = fused_pool.pool_data(specs[0], gen.gather_lanes(gen.stack_layouts(specs), idx * 0),
+                                "cpu")
+    assert same.uniform and same.table_rows.shape[0] == 1 and not same.table_idx.any()
+
+
 _MIXED_POOL = """
 import numpy as np, torch
 from overcooked_ai_tpu_torch.core import layout_generator as gen
@@ -167,8 +196,11 @@ from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
 from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout
 
 g = gen.LayoutGenerator(outer_shape=(5, 4), rng=np.random.RandomState(3))
-specs = [g.generate_spec(name="a"), g.generate_spec(name="b", delivery_reward=37)]
-lay = gen.gather_lanes(gen.stack_layouts(specs), np.array([0, 1, 0, 1]))
+specs = [g.generate_spec(name="a"), g.generate_spec(name="b", delivery_reward=37),
+         g.generate_spec(name="c", rew_shaping_params={
+             "PLACEMENT_IN_POT_REW": 7, "DISH_PICKUP_REWARD": 1, "SOUP_PICKUP_REWARD": 11}),
+         g.generate_spec(name="d", old_dynamics=True)]
+lay = gen.gather_lanes(gen.stack_layouts(specs), np.array([0, 1, 2, 3]))
 state = batch_reset(lay, 4, "cpu")
 act = torch.zeros((2, 4), dtype=torch.int32)
 calls = {
@@ -176,7 +208,7 @@ calls = {
     "pool_data": lambda: fp.pool_data(specs[0], lay, "cpu"),
     "fused_pool_train_step": lambda: fp.fused_pool_train_step(specs[0], lay, state, act),
     "fused_pool_train_step_tiles": lambda: fp.fused_pool_train_step_tiles(
-        specs[0], lay, state, act),
+        specs[0], fp.pool_data(specs[0], lay, "cpu"), state, act),
     "fused_pool_rollout_random": lambda: fp.fused_pool_rollout_random(
         specs[0], lay, state, 0, 5),
     "fused_pool_rollout_actions": lambda: fp.fused_pool_rollout_actions(
@@ -190,18 +222,27 @@ for name, call in calls.items():
     except ValueError as e:
         print(name, "ValueError", e)
     else:
-        raise SystemExit(f"{name} accepted a mixed-recipe pool")
+        print(name, "ran")
 print("asserts", "on" if __debug__ else "off")
 """
 
 
 @pytest.mark.parametrize("flags", [[], ["-O"]], ids=["asserts", "no-asserts"])
 def test_mixed_recipe_pool_raises_in_every_entry(flags):
+    """A pool mixing recipe value, shaping rewards and old dynamics: B4's
+    entries and `check_pool_uniform` refuse it (B4 reads one set of tables
+    for every lane), with and without asserts; `pool_data`, the B3 entries
+    and pool-mode `collect_rollout` run it, each lane under its own tables."""
     out = subprocess.run(
         [sys.executable, *flags, "-c", _MIXED_POOL], cwd=REPO, capture_output=True, text=True,
         timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
-    assert len([ln for ln in lines if " ValueError " in ln]) == 7, out.stdout
+    refused = {ln.split()[0] for ln in lines if " ValueError " in ln}
+    ran = {ln.split()[0] for ln in lines if ln.endswith(" ran")}
+    assert refused == {"check_pool_uniform", "fused_pool_rollout_random",
+                       "fused_pool_rollout_actions"}, out.stdout
+    assert ran == {"pool_data", "fused_pool_train_step", "fused_pool_train_step_tiles",
+                   "collect_rollout"}, out.stdout
     assert lines[-1] == ("asserts off" if flags else "asserts on")

@@ -8,6 +8,9 @@ pools it is what tests/test_fused_pool.py holds that kernel to, `jax.vmap`
 of `core.step.step` and `lossless_encode`, because the interpret-mode
 kernel, unrolled over every cell, takes about three times as long to compile
 at 35 cells as at 20, where it already takes most of this file's time.
+A pool that mixes recipe value, shaping rewards and old dynamics has no JAX
+kernel (the JAX learner runs it on its XLA path), so it too is held against
+the vmapped JAX step and encoding.
 """
 
 import numpy as np
@@ -30,12 +33,19 @@ B, BLOCK_B, HORIZON = 8, 4, 20
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]
 
 
-def _pools(outer_shape, seed=3, n=6):
+MIXED = [{}, {"delivery_reward": 37},
+         {"rew_shaping_params": {"PLACEMENT_IN_POT_REW": 7, "DISH_PICKUP_REWARD": 1,
+                                 "SOUP_PICKUP_REWARD": 11}},
+         {"old_dynamics": True, "cook_time": 5}]
+
+
+def _pools(outer_shape, seed=3, n=6, cfgs=None):
     kw = dict(outer_shape=outer_shape, prop_empty=0.95, prop_feats=0.1)
     g = gen.LayoutGenerator(rng=np.random.RandomState(seed), **kw)
     jg = jgen.LayoutGenerator(rng=np.random.RandomState(seed), **kw)
-    specs = [g.generate_spec(name=f"pool_{i}") for i in range(n)]
-    jspecs = [jg.generate_spec(name=f"pool_{i}") for i in range(n)]
+    cfgs = cfgs or [{}] * n
+    specs = [g.generate_spec(name=f"pool_{i}", **c) for i, c in enumerate(cfgs)]
+    jspecs = [jg.generate_spec(name=f"pool_{i}", **c) for i, c in enumerate(cfgs)]
     idx = np.arange(B) % n
     jlay = jax.tree.map(lambda leaf: jnp.asarray(leaf)[..., idx], jgen.stack_layouts(jspecs))
     return specs, jspecs, gen.gather_lanes(gen.stack_layouts(specs), idx), jlay
@@ -80,8 +90,9 @@ def test_pool_train_step_matches_jax_kernel():
     _run(fused_pool.check_pool_uniform(specs), lay, reference)
 
 
-def test_pool_train_step_7x5_matches_vmapped_jax():
-    specs, _, lay, jlay = _pools((7, 5))
+def _vmapped_reference(jlay, H, W):
+    """reference(actions) of `_run`: the JAX step and encoding vmapped over
+    the per-lane layout, auto-resetting at HORIZON."""
     bstep = jax.jit(jax.vmap(jstep, in_axes=(-1, -1, -1), out_axes=-1))
     enc = jax.jit(jax.vmap(lambda lo, s: jencode(lo, s, horizon=HORIZON), in_axes=(-1, -1),
                            out_axes=0))
@@ -94,10 +105,25 @@ def test_pool_train_step_7x5_matches_vmapped_jax():
         obs = jnp.transpose(enc(jlay, jstate[0]), (1, 0, 3, 4, 2))  # (P, B, H, W, 26)
         bits = jnp.arange(info.events.shape[0], dtype=jnp.int32).reshape(-1, 1, 1)
         ev = jnp.sum(info.events.astype(jnp.int32) << bits, axis=0)
-        return (jstate[0], obs.reshape(2 * B, 5, 7, 26), info.sparse_reward,
+        return (jstate[0], obs.reshape(2 * B, H, W, 26), info.sparse_reward,
                 info.shaped_reward, ev)
 
-    _run(fused_pool.check_pool_uniform(specs), lay, reference)
+    return reference
+
+
+def test_pool_train_step_7x5_matches_vmapped_jax():
+    specs, _, lay, jlay = _pools((7, 5))
+    _run(fused_pool.check_pool_uniform(specs), lay, _vmapped_reference(jlay, 5, 7))
+
+
+def test_mixed_pool_train_step_matches_vmapped_jax():
+    """Each lane under its own tables: the plain pool step (what B3 is held
+    to on the card) against the vmapped JAX step and encoding."""
+    # seed 6: the shaping and old-dynamics lanes earn shaped rewards in the window
+    specs, _, lay, jlay = _pools((5, 4), seed=6, n=len(MIXED), cfgs=MIXED)
+    pool = fused_pool.pool_data(specs[0], lay, "cpu")
+    assert pool.table_rows.shape[0] == len(MIXED) and not pool.uniform
+    _run(fused_pool.check_pool_shape(specs), lay, _vmapped_reference(jlay, 4, 5))
 
 
 def test_tiles_entry_takes_only_its_own_packed_pool():

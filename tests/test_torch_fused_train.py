@@ -7,6 +7,7 @@ shaped rewards, event bitmasks, across auto-resets.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -18,7 +19,7 @@ from overcooked_ai_tpu.ops import fused_train as jfused
 from overcooked_ai_tpu_torch.core import env, layout
 from overcooked_ai_tpu_torch.core.constants import NUM_EVENTS
 from overcooked_ai_tpu_torch.core.state import State
-from overcooked_ai_tpu_torch.ops import fused_train
+from overcooked_ai_tpu_torch.ops import _build, fused_train
 
 B = 128
 HORIZON = 15  # several auto-resets inside the test
@@ -93,3 +94,41 @@ def test_layout_words_built_once_per_layout():
     other = _build.layout_words(ring)
     assert other is not words and not np.array_equal(other, words)
     np.testing.assert_array_equal(words, _build._build_layout_words(cramped))
+
+
+@pytest.mark.parametrize("pool", [False, True], ids=["B1", "B3"])
+@pytest.mark.parametrize("batch", [1, 8, 37, 2048])
+def test_tile_plan_covers_every_env_once(batch, pool):
+    """The kernel's tiles (block k takes envs [k E, k E + E) cut at B)
+    cover each env exactly once, ragged batches included, and each tile's
+    envs leave in whole stores of `vec` bytes."""
+    for num_cells in (1, 20, 35, 126, 128):
+        plan = fused_train.tile_plan(num_cells, batch, pool)
+        assert plan.vec in (1, 2, 4, 8, 16) and plan.envs % plan.vec == 0
+        assert batch % plan.vec == 0 and plan.envs <= plan.threads
+        covered = np.zeros(batch, np.int64)
+        for k in range(plan.blocks):
+            n_env = min(plan.envs, batch - k * plan.envs)
+            assert n_env > 0 and n_env % plan.vec == 0
+            covered[k * plan.envs:k * plan.envs + n_env] += 1
+        assert (covered == 1).all()
+    assert fused_train.tile_plan(20, 2048, pool).vec == 16  # the main path's batch
+
+
+def test_tile_plan_fits_shared_memory():
+    """Every layout up to the kernels' 128 cells gets a tile that fits a
+    block's shared memory on the card (227 KB): the chosen tile, or half of
+    it on the largest layouts only."""
+    limit, tile = 232_448, fused_train.TILE_ENVS
+    assert fused_train.SMEM_PER_BLOCK == limit
+    for pool in (False, True):
+        for num_cells in range(1, _build.MAX_HW + 1):
+            plan = fused_train.tile_plan(num_cells, 2048, pool)
+            fits = fused_train.tile_smem_bytes(tile, num_cells, pool) <= limit
+            assert plan.envs == (tile if fits else tile // 2), (num_cells, pool)
+            assert fits or num_cells >= 120
+            assert plan.smem_bytes <= limit
+    # the size the C entry checked and accepted on the card for cramped_room
+    assert fused_train.tile_plan(20, 2048, envs=16).smem_bytes == 19_728
+    assert fused_train.tile_plan(128, 64, envs=64).envs == 16
+    assert fused_train.tile_plan(20, 64, envs=32).envs == 32

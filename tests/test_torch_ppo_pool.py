@@ -4,7 +4,9 @@ lanes at `pool_idx`, start from their start states, step them vmapped).
 
 Both sides take the same `pool_idx` and the same actions from numpy through
 `sample_fn`. Integer outputs match bit for bit; log-probs and values, from
-the JAX net's params converted with `params_from_jax`, within 1e-5.
+the JAX net's params converted with `params_from_jax`, within 1e-5. A pool
+whose layouts mix recipe value, shaping rewards and old dynamics runs too,
+each lane under its own tables, as on the JAX learner's XLA pool path.
 """
 
 import numpy as np
@@ -27,11 +29,18 @@ B, T, TOL = 8, 60, 1e-5
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]
 
 
-def _pools(seed, n=5):
+MIXED = [{}, {"delivery_reward": 37},
+         {"rew_shaping_params": {"PLACEMENT_IN_POT_REW": 7, "DISH_PICKUP_REWARD": 1,
+                                 "SOUP_PICKUP_REWARD": 11}},
+         {"old_dynamics": True, "cook_time": 5}]
+
+
+def _pools(seed, n=5, cfgs=None):
     g = gen.LayoutGenerator(rng=np.random.RandomState(seed))
     jg = jgen.LayoutGenerator(rng=np.random.RandomState(seed))
-    return ([g.generate_spec(name=f"p{i}") for i in range(n)],
-            [jg.generate_spec(name=f"p{i}") for i in range(n)])
+    cfgs = cfgs or [{}] * n
+    return ([g.generate_spec(name=f"p{i}", **c) for i, c in enumerate(cfgs)],
+            [jg.generate_spec(name=f"p{i}", **c) for i, c in enumerate(cfgs)])
 
 
 def _jax_reference(jpool, idx, acts):
@@ -96,6 +105,25 @@ def test_pool_collect_rollout_matches_jax_loop():
     ro = collect_rollout(specs, net, cfg, device="cpu", sample_fn=sample,
                          pool=gen.stack_layouts(regen), pool_idx=torch.from_numpy(idx))
     _check(ro, jgen.stack_layouts(jregen), idx, acts, jnet, params)
+
+
+def test_mixed_pool_collect_rollout_matches_jax_loop():
+    """Lanes with another delivery value, other shaping rewards, and old
+    dynamics with another cook time, through the CPU (plain) path, against
+    the JAX per-lane loop: obs, sparse, shaped and events bit for bit."""
+    specs, jspecs = _pools(5, cfgs=MIXED)
+    jnet, params, net = _nets()
+    idx = np.array([2, 1, 2, 3, 3, 2, 0, 2])  # four lanes of the shaping layout
+    acts = np.random.RandomState(9).choice(6, size=(T, 2, B), p=PROB).astype(np.int32)
+    sample = lambda logits, t: torch.from_numpy(acts[t].reshape(-1)).long()  # noqa: E731
+    fused_pool.train_launches = 0
+    ro = collect_rollout(specs, net, PPOConfig(num_envs=B, horizon=T), device="cpu",
+                         sample_fn=sample, pool_idx=torch.from_numpy(idx))
+    assert fused_pool.train_launches == 0
+    _check(ro, jgen.stack_layouts(jspecs), idx, acts, jnet, params)
+    # the lanes of the shaping layout earn its placement reward, 7
+    placed = ro.shaped[:, :, idx == 2]
+    assert int(placed.sum()) > 0 and int((placed % 7).sum()) == 0
 
 
 def test_pool_idx_comes_from_the_generator():
