@@ -11,7 +11,9 @@ Phases, one line each with its seconds:
   4. B1 parity: the fused train-step kernel against its plain version, bit
      for bit on state, obs, rewards and events, step by step: the main
      path's 2048 envs and the eval's 8, ragged batches, old dynamics and
-     `corridor` (HW = 126, the largest shared-memory tile);
+     `corridor` (HW = 126), a generated 16x8 layout (HW = 128, where the
+     tile halves to 16 envs) and the state and actions as contiguous views
+     at a 4-byte offset (the kernel's 4-byte staging copies);
   5. the policy path at full width: `collect_rollout` (2048 envs x 400
      steps, PPONet at NetConfig() widths, random weights from a seed) and
      `make_ppo_eval`, counting B1 launches; B1's time per launch at 2048
@@ -23,9 +25,9 @@ Phases, one line each with its seconds:
      steps, a ragged batch, the 7x5 outer shape, an old-dynamics pool and 1,
      3 and 4 players;
   8. B3 parity: the pool train-step kernel against its plain version, every
-     step: 2048 envs, a ragged batch, 7x5, an old-dynamics pool and a pool
+     step: 2048 envs, a ragged batch, 7x5, an old-dynamics pool, a pool
      whose lanes mix recipe values, cook times, shaping rewards and old
-     dynamics;
+     dynamics, and a 16x8 pool (HW = 128, the halved tile);
   9. the pool policy path at full width: `collect_rollout` over a 64-layout
      generated pool (2048 envs x 400 steps), counting B3 launches, a traced
      short pool rollout, and B3's time per launch;
@@ -91,6 +93,7 @@ def main() -> int:
         gather_lanes,
         stack_layouts,
     )
+    from overcooked_ai_tpu_torch.core.state import State
     from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
     from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
     from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout, make_ppo_eval
@@ -162,23 +165,43 @@ def main() -> int:
         raise SystemExit("B2 kernel disagrees with its plain version")
 
     # ---- 4. B1 parity, kernel vs plain, every step
+    def shifted(x):
+        """x as a contiguous view that starts 4 bytes past a 16-byte boundary."""
+        return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(
+            x.shape).copy_(x)
+
+    def layout_gen(outer_shape, seed, num_players=2):  # as the JAX bench.py's pools
+        return LayoutGenerator(outer_shape=outer_shape, prop_empty=0.95, prop_feats=0.1,
+                               num_players=num_players, rng=np.random.RandomState(seed))
+
     t0 = time.perf_counter()
     b1_err = 0
-    for name, kw, B, T, horizon, reset in (
-            ("cramped_room", {}, 256, 450, 400, 400),
-            ("coordination_ring", {"old_dynamics": True}, 256, 450, 400, 400),
-            ("cramped_room", {}, 2048, 150, 400, 400),  # the main path's shape
-            ("cramped_room", {}, 8, 150, 80, 60),  # the eval's 8 envs, two resets
-            ("cramped_room", {}, 37, 60, 400, 400),  # a ragged last tile
-            ("corridor", {}, 250, 120, 120, 100)):  # HW = 126; urgency from step 80
-        lay = from_layout_name(name, **kw).layout
+    cramped = from_layout_name("cramped_room").layout
+    for lay, B, T, horizon, reset, offset in (
+            (cramped, 256, 450, 400, 400, False),
+            (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 450, 400,
+             400, False),
+            (cramped, 2048, 150, 400, 400, False),  # the main path's shape
+            (cramped, 8, 150, 80, 60, False),  # the eval's 8 envs, two resets
+            (cramped, 37, 60, 400, 400, False),  # a ragged last tile
+            (cramped, 2048, 20, 400, 400, True),  # views at an offset: 4-byte staging copies
+            # HW = 126, the largest shipped layout; urgency from step 80
+            (from_layout_name("corridor").layout, 250, 120, 120, 100, False),
+            # a generated 16x8 layout, HW = 128: the halved tile, E = 16
+            (layout_gen((16, 8), 2).generate_spec(name="big").layout, 256, 120, 120, 100,
+             False)):
         lay_dev = layout_on(lay, dev)  # the plain version's tables, on the card
         rng = np.random.RandomState(1)
         sk = sp = batch_reset(lay, B, dev)
+        if offset:
+            sk = State(*(shifted(x) for x in sk))
         err = torch.zeros((), dtype=torch.int64, device=dev)
         for _t in range(T):
             a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
-            k = fused_train.fused_train_step_tiles(lay, sk, a, horizon=horizon,
+            ak = shifted(a) if offset else a
+            if offset and fused_train.stage_wide(fused_train.tile_plan(20, B), B, (*sk, ak)):
+                raise SystemExit("B1 would stage misaligned rows in 16-byte copies")
+            k = fused_train.fused_train_step_tiles(lay, sk, ak, horizon=horizon,
                                                    reset_horizon=reset)
             p = fused_train.plain_train_step(lay_dev, sp, a, horizon, reset)
             for g, w in zip((*k[0], *k[1:]), (*p[0], *p[1:])):
@@ -186,8 +209,9 @@ def main() -> int:
             sk, sp = k[0], p[0]
         b1_err = max(b1_err, int(err))
     log(f"[4 B1 parity] {time.perf_counter() - t0:.2f}s cramped_room,coordination_ring(old) "
-        f"B=256 T=450, cramped_room B=2048 T=150, B=8 T=150 and B=37 T=60, corridor B=250 "
-        f"T=120, max_abs_err={b1_err}")
+        f"B=256 T=450, cramped_room B=2048 T=150, B=8 T=150, B=37 T=60 and offset views "
+        f"B=2048 T=20, corridor B=250 T=120, 16x8 B=256 T=120 "
+        f"(tile {fused_train.tile_plan(128, 256).envs} envs), max_abs_err={b1_err}")
     if b1_err:
         raise SystemExit("B1 kernel disagrees with its plain version")
 
@@ -331,9 +355,7 @@ def main() -> int:
     # ---- the layout-pool path (B3, B4): pools as the JAX bench.py makes them
     def make_pool(n, seed=0, outer_shape=(5, 4), cfgs=None, **kw):
         """n generated layouts; `cfgs`, one per layout, mixes their tables."""
-        gen_ = LayoutGenerator(outer_shape=outer_shape, prop_empty=0.95, prop_feats=0.1,
-                               num_players=kw.pop("num_players", 2),
-                               rng=np.random.RandomState(seed))
+        gen_ = layout_gen(outer_shape, seed, kw.pop("num_players", 2))
         specs = [gen_.generate_spec(name=f"bench_{i}", **(cfgs[i] if cfgs else kw))
                  for i in range(n)]
         check = fused_pool.check_pool_shape if cfgs else fused_pool.check_pool_uniform
@@ -398,7 +420,8 @@ def main() -> int:
             ("5x4 B=37", (spec_pool, specs64), 37, 60),  # fewer envs than a block
             ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 150),
             ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 150),
-            ("mixed B=256", make_pool(4, 5, cfgs=MIXED), 256, 150))):
+            ("mixed B=256", make_pool(4, 5, cfgs=MIXED), 256, 150),
+            ("16x8 B=250", make_pool(16, 2, (16, 8)), 250, 120))):  # HW = 128: E = 16
         lay = lanes_of(specs, B, 10 + k)
         pool = fused_pool.pool_data(spec0, lay, dev)
         rng = np.random.RandomState(k)
@@ -420,7 +443,8 @@ def main() -> int:
         b3_err = max(b3_err, int(err))
     log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=150 and B=37 T=60, "
         f"7x5 B=256 T=150, old dynamics B=256 T=150, mixed tables B=256 T=150 "
-        f"({mixed_rows} distinct rows, shaped={mixed_shaped} sparse={mixed_sparse}), "
+        f"({mixed_rows} distinct rows, shaped={mixed_shaped} sparse={mixed_sparse}), 16x8 "
+        f"B=250 T=120 (tile {fused_train.tile_plan(128, 250, pool=True).envs} envs), "
         f"max_abs_err={b3_err}")
     if mixed_rows != 4 or not mixed_shaped:
         raise SystemExit("the mixed pool's lanes did not run under four tables with shaping")

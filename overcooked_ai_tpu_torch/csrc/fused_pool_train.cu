@@ -32,9 +32,10 @@ extern "C" int oc_fused_pool_train_step(const int* layout_words, const int* rese
                                         const StateArrays* out, const int* actions, int8_t* obs,
                                         int* sparse, int* shaped, int* events, int B,
                                         int horizon, int reset_horizon, int tile_envs,
-                                        int threads, int smem_bytes, int vec, void* stream) {
+                                        int threads, int smem_bytes, int vec, int wide,
+                                        void* stream) {
   return launch_train_step<true>(layout_words,
                                  LaneData{reset_words, start_players, table_rows, table_idx}, in,
                                  out, actions, obs, sparse, shaped, events, B, horizon,
-                                 reset_horizon, tile_envs, threads, smem_bytes, vec, stream);
+                                 reset_horizon, tile_envs, threads, smem_bytes, vec, wide, stream);
 }

@@ -17,8 +17,9 @@
 //     path's two batches), and all its threads stage the state, cook the
 //     cells and encode them; only the players' part of the transition
 //     stays one thread per env;
-//   - the state arrives in shared memory by cp.async in 16-byte runs, every
-//     load of the step in flight at once, not one word at a time per
+//   - the state arrives in shared memory by cp.async, in 16-byte runs where
+//     the batch and the tensors' alignment allow (fused_train.stage_wide),
+//     every load of the step in flight at once, not one word at a time per
 //     thread into a 512-byte local-memory frame; the layout's table row
 //     comes from device memory, and the rest of the layout block is read in
 //     place, not copied out of the parameter space;
@@ -36,9 +37,9 @@ extern "C" int oc_fused_train_step(const int* layout_words, const int* table_row
                                    const StateArrays* in, const StateArrays* out,
                                    const int* actions, int8_t* obs, int* sparse, int* shaped,
                                    int* events, int B, int horizon, int reset_horizon,
-                                   int tile_envs, int threads, int smem_bytes, int vec,
+                                   int tile_envs, int threads, int smem_bytes, int vec, int wide,
                                    void* stream) {
   return launch_train_step<false>(layout_words, LaneData{nullptr, nullptr, table_row, nullptr}, in,
                                   out, actions, obs, sparse, shaped, events, B, horizon,
-                                  reset_horizon, tile_envs, threads, smem_bytes, vec, stream);
+                                  reset_horizon, tile_envs, threads, smem_bytes, vec, wide, stream);
 }

@@ -10,7 +10,9 @@
 // the obs stores, and the C entry checks them). The block works in phases,
 // with a barrier between each:
 //   1. stage: every thread starts asynchronous copies (cp.async, 16 bytes
-//      when B is a multiple of 4) of the tile's rows into shared memory: the
+//      where the plan's `wide` allows: B and E multiples of 4 and every
+//      staged row's base 16-byte aligned) of the tile's rows into shared
+//      memory: the
 //      timestep, the actions, the players and the raw cell rows (obj,
 //      soup_ing, soup_tick, obj_seq and under POOL the reset words), and
 //      the RecipeTables rows (each lane's under POOL, the layout's one row
@@ -66,6 +68,7 @@
 #define OC_TRAIN_NP 2
 #define OC_ENV_ROWS 8
 #define OC_MAX_THREADS 512
+#define OC_MAX_CARDS 64  // cards a process may use, for the shared-memory opt-in
 enum { ENV_T, ENV_ACT, ENV_RESET = ENV_ACT + OC_TRAIN_NP, ENV_DISHES, ENV_FULL, ENV_NONEMPTY,
        ENV_POTS };
 
@@ -159,7 +162,7 @@ __global__ void __launch_bounds__(OC_MAX_THREADS)
                       StateArrays out, const int* __restrict__ actions, int8_t* __restrict__ obs,
                       int* __restrict__ sparse_out, int* __restrict__ shaped_out,
                       int* __restrict__ events_out, int B, int horizon, int reset_horizon, int E,
-                      int vec) {
+                      int vec, bool wide) {
   constexpr int NP = OC_TRAIN_NP;
   extern __shared__ __align__(16) unsigned char smem[];
   const int HW = lay.num_cells;
@@ -175,7 +178,6 @@ __global__ void __launch_bounds__(OC_MAX_THREADS)
   const int b0 = blockIdx.x * E;
   const int n_env = min(E, B - b0);
   const size_t Bs = (size_t)B;
-  const bool wide = B % 4 == 0 && E % 4 == 0;
   auto row = [&](int r, int e) -> int& { return rows[r * E + e]; };
   auto player = [&](int e, int i) {
     PlayerState p;
@@ -371,35 +373,48 @@ __global__ void __launch_bounds__(OC_MAX_THREADS)
   }
 }
 
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 // Launches the kernel on `stream` with the wrapper's tile plan (E envs a
 // block, `threads` threads, `smem_bytes` of dynamic shared memory, obs
-// stores of `vec` bytes); returns the cudaError_t of the launch, or
-// cudaErrorInvalidValue for a plan that does not fit this layout and batch.
+// stores of `vec` bytes, 16-byte staging copies if `wide`); returns the
+// cudaError_t of the launch, or cudaErrorInvalidValue for a plan that does
+// not fit this layout, batch and these pointers.
 template <bool POOL>
 static int launch_train_step(const int* layout_words, const LaneData& lanes,
                              const StateArrays* in, const StateArrays* out, const int* actions,
                              int8_t* obs, int* sparse, int* shaped, int* events, int B,
                              int horizon, int reset_horizon, int E, int threads, int smem_bytes,
-                             int vec, void* stream) {
+                             int vec, int wide, void* stream) {
   LayoutData lay;
   memcpy(&lay, layout_words, sizeof(LayoutData));
   const bool vec_ok = (vec == 1 || vec == 2 || vec == 4 || vec == 8 || vec == 16) &&
-                      E % vec == 0 && B % vec == 0;
+                      E % vec == 0 && B % vec == 0 && aligned16(obs);
+  // the rows staged four envs a copy; the table rows always go 16 bytes a copy
+  const void* staged[] = {in->t, actions, in->pos, in->orient, in->held, in->held_soup,
+                          in->held_soup_tick, in->obj, in->soup_ing, in->soup_tick,
+                          in->obj_seq, POOL ? lanes.reset_word : nullptr};
+  bool wide_ok = B % 4 == 0 && E % 4 == 0;
+  for (const void* p : staged) wide_ok = wide_ok && aligned16(p);
   if (lay.num_players != OC_TRAIN_NP || B < 1 || E < 1 || E > threads || threads % 32 != 0 ||
-      threads > OC_MAX_THREADS || !vec_ok || smem_bytes != tile_smem_bytes(E, lay.num_cells, POOL))
+      threads > OC_MAX_THREADS || !vec_ok || (wide && !wide_ok) ||
+      !aligned16(lanes.table_rows) || smem_bytes != tile_smem_bytes(E, lay.num_cells, POOL))
     return (int)cudaErrorInvalidValue;
   // above 48 KB a block's dynamic shared memory needs the kernel's consent,
-  // asked once per size reached (one card per process)
-  static int granted = 48 * 1024;
-  if (smem_bytes > granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        train_step_kernel<POOL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  // asked once per card and size reached
+  static int granted[OC_MAX_CARDS];
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess) return (int)err;
+  if (smem_bytes > 48 * 1024 && (card >= OC_MAX_CARDS || smem_bytes > granted[card])) {
+    err = cudaFuncSetAttribute(train_step_kernel<POOL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
-    granted = smem_bytes;
+    if (card < OC_MAX_CARDS) granted[card] = smem_bytes;
   }
   const int blocks = (B + E - 1) / E;
   train_step_kernel<POOL><<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
       lay, lanes, *in, *out, actions, obs, sparse, shaped, events, B, horizon, reset_horizon, E,
-      vec);
+      vec, wide != 0);
   return (int)cudaGetLastError();
 }

@@ -153,12 +153,12 @@ def load():
         lib.oc_layout_words.restype = i
         lib.oc_fused_rollout.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.oc_fused_rollout.restype = i
-        lib.oc_fused_train_step.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.oc_fused_train_step.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.oc_fused_train_step.restype = i
         lib.oc_fused_pool_rollout.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.oc_fused_pool_rollout.restype = i
         lib.oc_fused_pool_train_step.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                                 i, i, i, p]
+                                                 i, i, i, i, p]
         lib.oc_fused_pool_train_step.restype = i
         if lib.oc_layout_words() != LAYOUT_WORDS:
             raise RuntimeError(

@@ -52,6 +52,7 @@ from overcooked_ai_tpu_torch.ops.fused_rollout import _M32, plain_rollout
 from overcooked_ai_tpu_torch.ops.fused_train import (
     obs_tiles_to_nhwc,
     plain_train_step,
+    stage_wide,
     tile_plan,
 )
 
@@ -143,11 +144,15 @@ def _lane_pointers(pool: LanePool, state: State):
     P, B = state.held.shape
     H, W = pool.layout.terrain.shape[:2]
     _build.check_state(state, pool.layout, B, dev)
-    if (pool.reset_words.device != dev or tuple(pool.reset_words.shape) != (H * W, B)
-            or tuple(pool.start_players.shape) != (P, 8, B)
-            or tuple(pool.table_idx.shape) != (B,)):
+    want = ((pool.reset_words, (H * W, B)), (pool.start_players, (P, 8, B)),
+            (pool.table_rows, (pool.table_rows.shape[0], _build.TABLE_WORDS)),
+            (pool.table_idx, (B,)))
+    if any(x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != shape
+           or not x.is_contiguous() for x, shape in want):
         raise ValueError(f"pool data for {tuple(pool.reset_words.shape)} on "
                          f"{pool.reset_words.device}, state of {B} envs on {dev}")
+    if pool.table_rows.data_ptr() % 16:  # the kernel copies the rows 16 bytes at a time
+        raise ValueError("pool.table_rows must start on a 16-byte boundary")
     return pool.reset_words.data_ptr(), pool.start_players.data_ptr()
 
 
@@ -177,7 +182,9 @@ def _launch_train(pool: LanePool, state: State, actions: torch.Tensor, horizon: 
             ctypes.byref(_build.state_arrays(state)), ctypes.byref(_build.state_arrays(out)),
             actions.data_ptr(), obs.data_ptr(), sparse.data_ptr(), shaped.data_ptr(),
             events.data_ptr(), batch, horizon, reset_horizon, plan.envs, plan.threads,
-            plan.smem_bytes, plan.vec, torch.cuda.current_stream(dev).cuda_stream,
+            plan.smem_bytes, plan.vec,
+            int(stage_wide(plan, batch, (*state, actions, pool.reset_words))),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(err, "fused_pool_train_step")
     train_launches += 1

@@ -17,8 +17,10 @@ On a CPU tensor the wrappers run the plain version (`core.env.env_step` +
 against on the card. A tensor on any other device raises.
 
 The kernel runs a block per tile of `TILE_ENVS` envs; `tile_plan` sizes the
-launch (blocks, threads, dynamic shared memory, obs store width) here, and
-the C entry refuses a plan that does not match the layout and batch.
+launch (blocks, threads, dynamic shared memory, obs store width) here,
+`stage_wide` picks the width of the staging copies from the batch and the
+tensors' alignment, and the C entry refuses a plan that does not match the
+layout, batch and pointers.
 
 Encoding channel order (reference LAYERS): 0 self loc, 1 other loc, 2-5
 self orientation, 6-9 other orientation, 10-15 static terrain
@@ -88,6 +90,14 @@ def tile_plan(num_cells: int, batch: int, pool: bool = False, envs: int = TILE_E
     return TilePlan(envs, -(-batch // envs), threads, tile_smem_bytes(envs, num_cells, pool), vec)
 
 
+def stage_wide(plan: TilePlan, batch: int, rows) -> bool:
+    """Whether the kernel may stage the tile in 16-byte copies of four envs:
+    `batch` and the tile's envs are multiples of 4 and every staged tensor
+    (`rows`: the state, the actions and, in B3, the reset words) starts on a
+    16-byte boundary, which a contiguous view at an offset may not."""
+    return batch % 4 == 0 and plan.envs % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in rows)
+
+
 def pack_events(events: torch.Tensor) -> torch.Tensor:
     """(NUM_EVENTS, ...) bool -> (...) int32 bitmasks, EVENT_TYPES bit order."""
     bits = torch.arange(events.shape[0], device=events.device)
@@ -151,7 +161,8 @@ def launch_kernel(layout: Layout, state: State, actions: torch.Tensor, horizon: 
             ctypes.byref(_build.state_arrays(out)),
             actions.data_ptr(), obs.data_ptr(), sparse.data_ptr(), shaped.data_ptr(),
             events.data_ptr(), batch, horizon, reset_horizon, plan.envs, plan.threads,
-            plan.smem_bytes, plan.vec, torch.cuda.current_stream(dev).cuda_stream,
+            plan.smem_bytes, plan.vec, int(stage_wide(plan, batch, (*state, actions))),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(err, "fused_train_step")
     launches += 1

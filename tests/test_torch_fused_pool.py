@@ -185,6 +185,16 @@ def test_packed_table_rows_give_each_lane_its_own():
     same = fused_pool.pool_data(specs[0], gen.gather_lanes(gen.stack_layouts(specs), idx * 0),
                                 "cpu")
     assert same.uniform and same.table_rows.shape[0] == 1 and not same.table_idx.any()
+    # the kernels' entries refuse lane data that is not as pool_data packs it
+    state = batch_reset(pool.layout, len(idx), "cpu")
+    assert fused_pool._lane_pointers(pool, state)
+    shifted = torch.zeros(pool.table_rows.numel() + 1, dtype=torch.int32)[1:]
+    for bad in (pool._replace(table_rows=shifted.view(pool.table_rows.shape)),
+                pool._replace(table_idx=pool.table_idx.long()),
+                pool._replace(table_rows=pool.table_rows[:, :48]),
+                pool._replace(reset_words=pool.reset_words.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            fused_pool._lane_pointers(bad, state)
 
 
 _MIXED_POOL = """

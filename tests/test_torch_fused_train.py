@@ -132,3 +132,22 @@ def test_tile_plan_fits_shared_memory():
     assert fused_train.tile_plan(20, 2048, envs=16).smem_bytes == 19_728
     assert fused_train.tile_plan(128, 64, envs=64).envs == 16
     assert fused_train.tile_plan(20, 64, envs=32).envs == 32
+
+
+def test_stage_wide_needs_aligned_rows():
+    """The kernel stages four envs a 16-byte copy only where the batch, the
+    tile and every staged tensor's start allow it; a contiguous view at a
+    4-byte offset passes the wrappers' shape checks and must get 4-byte
+    copies."""
+    state = env.batch_reset(layout.from_layout_name("cramped_room").layout, 2048, device="cpu")
+    act = torch.zeros((2, 2048), dtype=torch.int32)
+    plan = fused_train.tile_plan(20, 2048)
+    assert all(x.data_ptr() % 16 == 0 for x in (*state, act))
+    assert fused_train.stage_wide(plan, 2048, (*state, act))
+    shifted = torch.zeros(2 * 2048 + 1, dtype=torch.int32)[1:].view(2, 2048)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert not fused_train.stage_wide(plan, 2048, (*state, shifted))
+    assert not fused_train.stage_wide(plan, 2048, (*state._replace(t=shifted[0]), act))
+    assert not fused_train.stage_wide(fused_train.tile_plan(20, 37), 37, (*state, act))
+    assert not fused_train.stage_wide(fused_train.tile_plan(20, 2048, envs=2), 2048,
+                                      (*state, act))
