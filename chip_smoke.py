@@ -5,7 +5,8 @@
 
 Phases, one line each with its seconds:
   1. device: the card, and its name and power limit from nvidia-smi;
-  2. build: the CUDA kernels from csrc/ (cold or warm);
+  2. build: the CUDA kernels from csrc/ (cold or warm), and ptxas's
+     registers and spills for B2 and B4 at 1-4 players;
   3. B2 parity: the whole-horizon rollout kernel against its plain PyTorch
      version, bit for bit, explicit actions and the murmur3 stream;
   4. B1 parity: the fused train-step kernel against its plain version, bit
@@ -19,7 +20,8 @@ Phases, one line each with its seconds:
      `make_ppo_eval`, counting B1 launches; B1's time per launch at 2048
      and at 8 envs, and a sweep of its tile (envs and threads a block);
   6. env throughput: `rollout_random` at 16384 envs x 4000 steps on B2,
-     then B2 held against its plain version at 16384 envs x 450 steps;
+     then B2 held against its plain version at 16384 envs x 450 steps, and
+     B2's device time (profiler) at 16384 x 450 and 16384 x 4000;
   7. B4 parity: the pool whole-horizon kernel against its plain version on
      per-lane layouts, bit for bit: the main path's 16384 envs over 450
      steps, a ragged batch, the 7x5 outer shape, an old-dynamics pool and 1,
@@ -32,7 +34,17 @@ Phases, one line each with its seconds:
      generated pool (2048 envs x 400 steps), counting B3 launches, a traced
      short pool rollout, and B3's time per launch;
  10. pool env throughput: `fused_pool_rollout_random` at 16384 envs x 4000
-     steps in one B4 launch.
+     steps in one B4 launch, then `fused_pool_rollout_random_tiles` on the
+     pool packed once, with each entry's wall outside the kernel; B4's
+     device time at 16384 x 4000; a sweep of the threads a block of B2 and
+     B4 at 16384 x 450;
+ 11. soups off the pots: B2 and B4 held against their plain versions on
+     crafted `cramped_room` states with cooking soups on counters, idle full
+     soups on counters under old dynamics, and a cooking soup carried from
+     one counter to another by explicit actions.
+A kernel's time is the profiler's device time; where the profiler records
+none (it has, late in a run), CUDA events time the card instead, and a
+`[timing]` line names those kernels.
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure exits non-zero. Needs one CUDA card; imports
 nothing of JAX.
@@ -41,6 +53,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -117,6 +130,23 @@ def main() -> int:
     path, built, secs = _build.build()
     _build.load()
     log(f"[2 build] {secs:.2f}s {'cold' if built else 'warm'} -> {path}")
+    # ptxas's report per kernel, "rollout_kernel<NP,POOL,RNG>": [registers,
+    # spill-store bytes]; the spill line comes before the register line
+    ptxas, name = {}, None
+    with open(path[:-3] + ".log") as f:
+        for line in f:
+            m = re.search(r"entry function '_Z\d+(\w+?)I(\w+?)EEv", line)
+            if m:
+                name = f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+                ptxas[name] = [None, None]
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                ptxas[name][1] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                ptxas[name][0] = int(m.group(1))
+    rollout_regs = {k: v for k, v in sorted(ptxas.items()) if k.startswith("rollout")}
+    log("[2 ptxas] registers, spill-store bytes " + json.dumps(rollout_regs))
 
     def synced(fn):
         torch.cuda.synchronize()
@@ -252,18 +282,33 @@ def main() -> int:
             return 0
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    def kernel_ms(name, fn):
-        """fn's result and the device ms of the profiler rows whose kernel
-        name holds `name`; fails if there are none."""
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
-            out = fn()
-            torch.cuda.synchronize()
-        rows = [e for e in p.key_averages() if dev_time(e) > 0]
-        ms = sum(dev_time(e) for e in rows if name in e.key) / 1e3
-        if ms <= 0:
-            raise SystemExit(f"the profiler saw no {name} time; kernels: "
-                             f"{[e.key[:60] for e in rows]}")
-        return out, ms
+    event_timed = []  # kernels the profiler did not see, timed by CUDA events instead
+
+    def kernel_ms(name, fn, launches=1):
+        """fn's result and the mean device ms of one launch of the kernel
+        whose name holds `name`, over the profiler's records of fn's
+        launches. The profiler was seen to miss a few of 50 short launches,
+        so the mean is over the records, not the launches made; and, late in
+        a run, to record no kernel at all. A call with no record is made
+        again, once, and then timed by CUDA events around fn's `launches`
+        launches, the card kept busy while the host queues them (so the
+        events time the card, not the host); so are the run's later calls."""
+        for _ in range(0 if event_timed else 2):
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+                out = fn()
+                torch.cuda.synchronize()
+            mine = [e for e in p.key_averages() if dev_time(e) > 0 and name in e.key]
+            seen = sum(e.count for e in mine)
+            if seen:
+                return out, sum(dev_time(e) for e in mine) / 1e3 / seen
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # about 50 ms of the card's clock
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        event_timed.append(name)
+        return out, e0.elapsed_time(e1) / launches
 
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -291,11 +336,11 @@ def main() -> int:
         state = batch_reset(lay, B, dev)
         act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
         n = 50
-        _, total_ms = kernel_ms("train_step_kernel<false>", lambda: [
-            fused_train.fused_train_step_tiles(lay, state, act, horizon=400) for _ in range(n)])
+        _, ms = kernel_ms("train_step_kernel<false>", lambda: [
+            fused_train.fused_train_step_tiles(lay, state, act, horizon=400) for _ in range(n)], n)
         _, secs = synced(lambda: [fused_train.plain_train_step(lay_dev, state, act, 400, 400)
                                   for _ in range(10)])
-        b1_time[B] = (total_ms / n, secs * 1e3 / 10, B * env_bytes / H100_BYTES_PER_S * 1e3)
+        b1_time[B] = (ms, secs * 1e3 / 10, B * env_bytes / H100_BYTES_PER_S * 1e3)
     b1_ms, b1_plain_ms, b1_bound_ms = b1_time[2048]
     log(f"[5 B1 timing] B=2048 {b1_ms:.4f} ms/launch (profiler) plain {b1_plain_ms:.3f} ms "
         f"bound {b1_bound_ms:.5f} ms ({2048 * env_bytes} bytes); B=8 {b1_time[8][0]:.4f} "
@@ -312,18 +357,20 @@ def main() -> int:
             for threads in (256, 512):
                 plan = fused_train.tile_plan(HW, B, envs=envs, threads=threads)
                 n = 30
-                _, total_ms = kernel_ms("train_step_kernel<false>", lambda: [
-                    fused_train.launch_kernel(lay, state, act, 400, 400, plan)
-                    for _ in range(n)])
-                sweep[f"B{B}_E{envs}_T{threads}"] = total_ms / n
+                _, sweep[f"B{B}_E{envs}_T{threads}"] = kernel_ms(
+                    "train_step_kernel<false>", lambda: [
+                        fused_train.launch_kernel(lay, state, act, 400, 400, plan)
+                        for _ in range(n)], n)
     log("[5 B1 tile sweep] ms/launch " + json.dumps({k: round(v, 5) for k, v in sweep.items()}))
 
     # ---- 6. env throughput on B2: the main path's run, then the kernel held
     # against its plain version at the same 16384 envs over 450 steps (one
     # auto-reset), which also gives the time, plain time and bound of the
-    # kernel table; the plain version at 4000 steps would take most of a minute
+    # kernel table; the plain version at 4000 steps would take most of a
+    # minute. The kernel's device time at both lengths, from the profiler
     B, T, T_CMP = 16384, 4000, 450
     state = batch_reset(lay, B, dev)
+    lay_b2, state_b2 = lay, state
     fused_train.launches = fused_rollout.launches = 0
     (final, total), t_b2 = synced(lambda: rollout_random(lay, state, 1, T, horizon=400))
     b2_launches, b1_main6 = fused_rollout.launches, fused_train.launches
@@ -331,7 +378,11 @@ def main() -> int:
         raise SystemExit(f"rollout_random launched B2 {b2_launches} times, want 1")
     if not (bool(final.t.eq(T % 400).all()) and int(total) > 0):  # ten whole episodes
         raise SystemExit("rollout_random: wrong final timestep or no delivery at all")
-    got, t_k = synced(lambda: fused_rollout.fused_rollout_random(lay, state, 1, T_CMP, horizon=400))
+    b2_name = "rollout_kernel<2, false"  # B2 at two players, either action source
+    got, b2_ms = kernel_ms(b2_name, lambda: fused_rollout.fused_rollout_random(
+        lay, state, 1, T_CMP, horizon=400))
+    _, b2_main_ms = kernel_ms(b2_name, lambda: fused_rollout.fused_rollout_random(
+        lay, state, 1, T, horizon=400))
     want, t_plain = synced(
         lambda: fused_rollout.plain_rollout(lay_dev, state, 1, None, T_CMP, 400)
     )
@@ -344,12 +395,17 @@ def main() -> int:
     # pot / start-soup cell (cook tick), 15 for collision, reset and return
     n_effect = int(((lay.terrain == TERRAIN_POT) | (lay.start_state.obj == OBJ_SOUP)).sum())
     ops_per_env_step = 105 * P + 15 * n_effect + 15
-    b2_ops = B * T_CMP * ops_per_env_step
     b2_bytes = B * (2 * state_bytes + 4)
-    b2_bound_ms = max(b2_ops / H100_INT32_OPS_PER_S, b2_bytes / H100_BYTES_PER_S) * 1e3
-    log(f"[6 B2 throughput] {t_b2 + t_k + t_plain:.2f}s rollout_random {B}x{T}: "
+
+    def b2_bound(steps):
+        return max(B * steps * ops_per_env_step / H100_INT32_OPS_PER_S,
+                   b2_bytes / H100_BYTES_PER_S) * 1e3
+
+    b2_bound_ms, b2_main_bound_ms = b2_bound(T_CMP), b2_bound(T)
+    log(f"[6 B2 throughput] rollout_random {B}x{T}: wall "
         f"{t_b2 * 1e3:.3f} ms = {B * T / t_b2:.0f} env-steps/s, return={int(total)}; "
-        f"B2 launches={b2_launches} B1={b1_main6}; {B}x{T_CMP}: kernel {t_k * 1e3:.3f} ms, "
+        f"B2 launches={b2_launches} B1={b1_main6}; kernel (profiler) {b2_main_ms:.4f} ms, "
+        f"bound {b2_main_bound_ms:.4f} ms; {B}x{T_CMP}: kernel {b2_ms:.4f} ms, "
         f"plain {t_plain * 1e3:.1f} ms, bound {b2_bound_ms:.4f} ms, max_abs_err={b2_err}")
 
     # ---- the layout-pool path (B3, B4): pools as the JAX bench.py makes them
@@ -381,7 +437,8 @@ def main() -> int:
     B, T_CMP = 16384, 450  # the main path's envs; 450 steps cross the auto-reset at 400
     lay_b4 = lanes_of(specs64, B, 1)
     state_b4 = batch_reset(lay_b4, B, dev)
-    got, b4_cmp_ms = kernel_ms("rollout_kernel<2, true>", lambda: (
+    b4_name = "rollout_kernel<2, true"  # B4 at two players, either action source
+    got, b4_cmp_ms = kernel_ms(b4_name, lambda: (
         fused_pool.fused_pool_rollout_random(spec_pool, lay_b4, state_b4, 1, T_CMP, horizon=400)))
     want, b4_plain_s = synced(lambda: fused_pool.plain_pool_rollout(lay_b4, state_b4, 1, None,
                                                                      T_CMP, 400))
@@ -487,10 +544,9 @@ def main() -> int:
     pool = fused_pool.pool_data(spec_pool, lay, dev)
     state = batch_reset(lay, B, dev)
     act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
-    _, b3_total_ms = kernel_ms("train_step_kernel<true>", lambda: [
+    _, b3_ms = kernel_ms("train_step_kernel<true>", lambda: [
         fused_pool.fused_pool_train_step_tiles(spec_pool, pool, state, act, horizon=400)
-        for _ in range(n)])
-    b3_ms = b3_total_ms / n
+        for _ in range(n)], n)
     _, secs = synced(lambda: [fused_pool.plain_pool_train_step(pool.layout, state, act, 400, 400)
                               for _ in range(10)])
     b3_plain_ms = secs * 1e3 / 10
@@ -505,7 +561,9 @@ def main() -> int:
     log(f"[9 B3 timing] {b3_ms:.4f} ms/launch (profiler) plain {b3_plain_ms:.3f} ms "
         f"bound {b3_bound_ms:.5f} ms ({b3_bytes} bytes) B={B}")
 
-    # ---- 10. pool env throughput on B4: the main path's run, one launch
+    # ---- 10. pool env throughput on B4: the main path's run, one launch,
+    # through the public entry (which packs the pool) and through the _tiles
+    # entry on the pool packed once, each entry's wall against the kernel's
     B, T = 16384, 4000
     reset_counts()
     (final, ret), t_b4 = synced(lambda: fused_pool.fused_pool_rollout_random(
@@ -517,8 +575,14 @@ def main() -> int:
                          f"want B4 once")
     if not (bool(final.t.eq(T % 400).all()) and int((ret >= 0).sum()) == B):
         raise SystemExit("fused_pool_rollout_random: wrong final timestep or a negative return")
-    _, b4_ms = kernel_ms("rollout_kernel<2, true>", lambda: (
-        fused_pool.fused_pool_rollout_random(spec_pool, lay_b4, state_b4, 1, T, horizon=400)))
+    pool_b4, t_pack = synced(lambda: fused_pool.pool_data(spec_pool, lay_b4, dev))
+    tiles_out, t_b4_tiles = synced(lambda: fused_pool.fused_pool_rollout_random_tiles(
+        spec_pool, pool_b4, state_b4, 1, T, horizon=400))
+    if max_err((*tiles_out[0], tiles_out[1]), (*final, ret)):
+        raise SystemExit("fused_pool_rollout_random_tiles disagrees with the public entry")
+    _, b4_main_ms = kernel_ms(b4_name, lambda: fused_pool.fused_pool_rollout_random_tiles(
+        spec_pool, pool_b4, state_b4, 1, T, horizon=400))
+    b4_outside_ms = {"public": t_b4 * 1e3 - b4_main_ms, "tiles": t_b4_tiles * 1e3 - b4_main_ms}
     # integer operations of one env step, counted by hand from
     # csrc/overcooked_step.cuh under POOL: about 110 per player (B2's 105 and
     # the terrain read from the cell word), 4 per cell for the cook-tick pass
@@ -526,16 +590,85 @@ def main() -> int:
     # for collision, reset and return; the lanes' pots from their terrain
     pots = int((lay_b4.terrain == TERRAIN_POT).sum())
     ops_per_step = B * (110 * P + 4 * HW + 15) + 11 * pots
+
+    def b4_bound(steps):
+        """the operations of `steps` steps; the state in and out, the return,
+        the reset words at load and at each auto-reset, the start players at
+        each auto-reset"""
+        resets = steps // 400
+        b4_bytes = B * (2 * state_bytes + 4 + 4 * HW * (1 + resets) + 32 * P * resets)
+        return max(ops_per_step * steps / H100_INT32_OPS_PER_S, b4_bytes / H100_BYTES_PER_S) * 1e3
+
     b4_ops = ops_per_step * T_CMP
-    # the state in and out, the return, the reset words at load and at the
-    # one auto-reset of 450 steps, the start players at that reset
-    b4_bytes = B * (2 * state_bytes + 4 + 4 * HW * 2 + 32 * P)
-    b4_bound_ms = max(b4_ops / H100_INT32_OPS_PER_S, b4_bytes / H100_BYTES_PER_S) * 1e3
+    b4_bound_ms, b4_main_bound_ms = b4_bound(T_CMP), b4_bound(T)
     log(f"[10 pool throughput] fused_pool_rollout_random {B}x{T}: wall {t_b4 * 1e3:.3f} ms, "
-        f"kernel {b4_ms:.3f} ms (profiler) = {B * T / b4_ms * 1e3:.0f} env-steps/s, "
-        f"return={int(ret.sum())}; B1/B2/B3/B4 launches={b4_counts}; {B}x{T_CMP}: kernel "
-        f"{b4_cmp_ms:.3f} ms, plain {b4_plain_s * 1e3:.1f} ms, bound {b4_bound_ms:.4f} ms "
-        f"({b4_ops} ops), max_abs_err={b4_err}")
+        f"kernel {b4_main_ms:.4f} ms (profiler) = {B * T / b4_main_ms * 1e3:.0f} env-steps/s, "
+        f"bound {b4_main_bound_ms:.4f} ms, return={int(ret.sum())}; B1/B2/B3/B4 "
+        f"launches={b4_counts}; packed once ({t_pack * 1e3:.3f} ms), "
+        f"fused_pool_rollout_random_tiles wall {t_b4_tiles * 1e3:.3f} ms; wall outside the "
+        f"kernel: public {b4_outside_ms['public']:.3f} ms, tiles {b4_outside_ms['tiles']:.3f} "
+        f"ms; {B}x{T_CMP}: kernel {b4_cmp_ms:.4f} ms, plain {b4_plain_s * 1e3:.1f} ms, bound "
+        f"{b4_bound_ms:.4f} ms ({b4_ops} ops), max_abs_err={b4_err}")
+
+    # the threads a block of B2 and B4, at the main path's 16384 envs over
+    # 450 steps (ROLLOUT_THREADS is the constant)
+    rollout_sweep = {}
+    for threads in (32, 64, 128, 256):
+        _, rollout_sweep[f"B2_T{threads}"] = kernel_ms(b2_name, lambda: fused_rollout.launch_kernel(
+            lay_b2, state_b2, 1, None, T_CMP, 400, threads))
+        _, rollout_sweep[f"B4_T{threads}"] = kernel_ms(
+            b4_name, lambda: fused_pool.launch_rollout_kernel(
+                pool_b4, state_b4, 1, None, T_CMP, 400, threads))
+    log("[10 rollout sweep] ms at 16384x450 by threads a block "
+        + json.dumps({k: round(v, 5) for k, v in rollout_sweep.items()}))
+
+    # ---- 11. soups off the pots, kernel vs plain: crafted `cramped_room`
+    # states whose live cells are not only the pots (as in
+    # tests/test_torch_rollout_soups.py), on B2 and on B4 (lanes of two
+    # cramped_room specs), with explicit actions
+    t0 = time.perf_counter()
+    soups = {  # case -> {(x, y): (slots, tick)}
+        "cooking": {(0, 0): ((1, 1, 1), 5), (4, 2): ((1, 2, 0), 0), (3, 0): ((2, 2, 2), 18),
+                    (2, 0): ((1, 1, 1), 3), (1, 0): ((1, 0, 0), -1)},
+        "old_idle": {(0, 0): ((1, 1, 1), -1), (0, 2): ((2, 2, 2), -1), (4, 2): ((1, 2, 0), -1)},
+        "carried": {(2, 3): ((1, 1, 1), 5)},
+    }
+    B = 70  # a ragged last block
+    soups_err = 0
+    for case, cells in soups.items():
+        spec_s = from_layout_name("cramped_room", old_dynamics=case == "old_idle")
+        specs_s = [spec_s, from_layout_name("cramped_room", old_dynamics=case == "old_idle")]
+        st = batch_reset(spec_s.layout, B, dev)
+        for k, ((x, y), (slots, tick)) in enumerate(cells.items()):
+            st.obj[y, x] = OBJ_SOUP
+            st.soup_ing[y, x] = torch.tensor(slots, dtype=torch.int32, device=dev)[:, None]
+            st.soup_tick[y, x] = tick
+            st.obj_seq[y, x] = k + 1
+        acts = torch.from_numpy(
+            np.random.RandomState(11).choice(6, size=(30, 2, B), p=PROB).astype(np.int32))
+        if case == "carried":  # player 0 faces the soup, picks it up, carries it east, drops it
+            st.pos[0, 0], st.pos[0, 1], st.orient[0] = 2, 2, 1
+            acts[:4, 0] = torch.tensor([5, 2, 2, 5], dtype=torch.int32)[:, None]
+            acts[:4, 1] = 4
+        acts = acts.to(dev)
+        lay_s = lanes_of(specs_s, B, 7)
+        spec0_s = fused_pool.check_pool_uniform(specs_s)
+        # 20 steps keep the crafted soups; 30 cross an auto-reset at 25
+        for steps, horizon in ((20, 400), (30, 25)):
+            a = acts[:steps]
+            got = fused_rollout.fused_rollout_actions(spec_s.layout, st, a, horizon)
+            got4 = fused_pool.fused_pool_rollout_actions(spec0_s, lay_s, st, a, horizon)
+            want = fused_rollout.plain_rollout(layout_on(spec_s.layout, dev), st, 0, a, steps,
+                                               horizon)
+            want4 = fused_pool.plain_pool_rollout(lay_s, st, 0, a, steps, horizon)
+            soups_err = max(soups_err, max_err((*got[0], got[1]), (*want[0], want[1])),
+                            max_err((*got4[0], got4[1]), (*want4[0], want4[1])))
+    b2_err, b4_err = max(b2_err, soups_err), max(b4_err, soups_err)
+    log(f"[11 soups off the pots] {time.perf_counter() - t0:.2f}s cooking, old_idle, carried: "
+        f"B={B}, explicit actions, 20 steps and 30 across an auto-reset, B2 and B4 "
+        f"max_abs_err={soups_err}")
+    if soups_err:
+        raise SystemExit("B2 or B4 disagrees with its plain version on soups off the pots")
 
     table = {"kernels": [
         {"name": "fused_train_step (B1)", "route": "cuda",
@@ -550,8 +683,12 @@ def main() -> int:
         {"name": "fused_rollout (B2)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_rollout.py:693", "launches": b2_launches,
-         "max_abs_err": b2_err, "ms": t_k * 1e3, "plain_ms": t_plain * 1e3,
-         "bound_ms": b2_bound_ms, "bound_by": "operations", "library_ms": None},
+         "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": t_plain * 1e3,
+         "bound_ms": b2_bound_ms, "bound_by": "operations", "library_ms": None,
+         "steps": T_CMP, "main_steps": T, "main_ms": b2_main_ms,
+         "main_bound_ms": b2_main_bound_ms, "threads": fused_rollout.ROLLOUT_THREADS,
+         "threads_sweep_ms": {k: v for k, v in rollout_sweep.items() if k.startswith("B2")},
+         "registers_spills": {k: v for k, v in rollout_regs.items() if ",0," in k}},
         {"name": "fused_pool_train_step (B3)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_pool_train.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_pool.py:513", "launches": b3_launches,
@@ -561,8 +698,15 @@ def main() -> int:
          "source": "overcooked_ai_tpu_torch/csrc/fused_pool_rollout.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_pool.py:286", "launches": b4_launches,
          "max_abs_err": b4_err, "ms": b4_cmp_ms, "plain_ms": b4_plain_s * 1e3,
-         "bound_ms": b4_bound_ms, "bound_by": "operations", "library_ms": None},
+         "bound_ms": b4_bound_ms, "bound_by": "operations", "library_ms": None,
+         "steps": T_CMP, "main_steps": T, "main_ms": b4_main_ms,
+         "main_bound_ms": b4_main_bound_ms, "threads": fused_rollout.ROLLOUT_THREADS,
+         "threads_sweep_ms": {k: v for k, v in rollout_sweep.items() if k.startswith("B4")},
+         "registers_spills": {k: v for k, v in rollout_regs.items() if ",1," in k},
+         "entry_outside_ms": b4_outside_ms},
     ]}
+    if event_timed:
+        log(f"[timing] timed by CUDA events, the profiler having recorded none: {event_timed}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s wall")
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

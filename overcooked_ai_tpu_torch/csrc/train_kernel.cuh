@@ -49,7 +49,7 @@
 //                                  [6 or 7][HW][E] of int32
 //
 // The cook pass visits every cell of every env in both kernels, as
-// core/step.py does (B2 narrows it to the pot and start-soup cells).
+// core/step.py does.
 //
 // Channels (the reference LAYERS order): 0 own location, 1 other location,
 // 2-5 own orientation, 6-9 other orientation, 10-15 pot / counter / onion /
@@ -68,7 +68,6 @@
 #define OC_TRAIN_NP 2
 #define OC_ENV_ROWS 8
 #define OC_MAX_THREADS 512
-#define OC_MAX_CARDS 64  // cards a process may use, for the shared-memory opt-in
 enum { ENV_T, ENV_ACT, ENV_RESET = ENV_ACT + OC_TRAIN_NP, ENV_DISHES, ENV_FULL, ENV_NONEMPTY,
        ENV_POTS };
 
@@ -246,8 +245,9 @@ __global__ void __launch_bounds__(OC_MAX_THREADS)
     }
     int t = row(ENV_T, e), dishes = row(ENV_DISHES, e);
     const PotSnapshot snap{row(ENV_FULL, e), row(ENV_NONEMPTY, e), row(ENV_POTS, e)};
-    env_act<NP, true, true>(lay, tables_of<POOL>(tabs, e), cells + e * S, pl, t, act, sparse,
-                            shaped, events, dishes, snap);
+    EnvCells env_cells{cells + e * S};
+    env_act<NP, true>(lay, tables_of<POOL>(tabs, e), env_cells, pl, t, act, sparse, shaped,
+                      events, dishes, snap);
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       sparse_out[i * Bs + b] = sparse[i];
@@ -400,18 +400,10 @@ static int launch_train_step(const int* layout_words, const LaneData& lanes,
       threads > OC_MAX_THREADS || !vec_ok || (wide && !wide_ok) ||
       !aligned16(lanes.table_rows) || smem_bytes != tile_smem_bytes(E, lay.num_cells, POOL))
     return (int)cudaErrorInvalidValue;
-  // above 48 KB a block's dynamic shared memory needs the kernel's consent,
-  // asked once per card and size reached
   static int granted[OC_MAX_CARDS];
-  int card = 0;
-  cudaError_t err = cudaGetDevice(&card);
+  const cudaError_t err =
+      allow_smem((const void*)train_step_kernel<POOL>, smem_bytes, granted);
   if (err != cudaSuccess) return (int)err;
-  if (smem_bytes > 48 * 1024 && (card >= OC_MAX_CARDS || smem_bytes > granted[card])) {
-    err = cudaFuncSetAttribute(train_step_kernel<POOL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    if (card < OC_MAX_CARDS) granted[card] = smem_bytes;
-  }
   const int blocks = (B + E - 1) / E;
   train_step_kernel<POOL><<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
       lay, lanes, *in, *out, actions, obs, sparse, shaped, events, B, horizon, reset_horizon, E,

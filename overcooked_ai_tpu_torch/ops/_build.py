@@ -33,7 +33,6 @@ import time
 import numpy as np
 import torch
 
-from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP, TERRAIN_POT
 from overcooked_ai_tpu_torch.core.layout import Layout
 from overcooked_ai_tpu_torch.core.state import State, to_torch
 
@@ -50,12 +49,12 @@ LINK_FLAGS = ["-shared"]
 MAX_HW = 128
 MAX_P = 4
 SEQ_MAX = 2047
-HEADER_WORDS = 6  # then the RecipeTables words
+HEADER_WORDS = 5  # then the RecipeTables words
 # the layout fields of a `RecipeTables` block, in its word order
 TABLE_FIELDS = ("old_dynamics", "placement_in_pot_rew", "dish_pickup_rew", "soup_pickup_rew",
                 "time_table", "delivery_value", "opt_value")
 TABLE_WORDS = 4 + 3 * 16
-LAYOUT_WORDS = HEADER_WORDS + TABLE_WORDS + 2 * MAX_HW + 8 * MAX_P + MAX_HW
+LAYOUT_WORDS = HEADER_WORDS + TABLE_WORDS + 2 * MAX_HW + 8 * MAX_P
 
 _lib = None  # the loaded library, once per process
 # id(layout) -> (layout, its LayoutData words); holding the layout keeps
@@ -231,11 +230,9 @@ def _build_layout_words(layout: Layout) -> np.ndarray:
     if HW > MAX_HW or not 1 <= P <= MAX_P:
         raise ValueError(f"kernels take HW <= {MAX_HW} and 1 <= P <= {MAX_P}, got {HW}, {P}")
     terrain = np.asarray(layout.terrain, np.int64).reshape(HW)
-    s_obj = np.asarray(start.obj).reshape(HW)
-    effects = np.nonzero((terrain == TERRAIN_POT) | (s_obj == OBJ_SOUP))[0]
 
     words = np.zeros(LAYOUT_WORDS, np.int64)
-    words[:HEADER_WORDS] = [H, W, HW, P, int(layout.num_pots), len(effects)]
+    words[:HEADER_WORDS] = [H, W, HW, P, int(layout.num_pots)]
     o = HEADER_WORDS
     words[o:o + TABLE_WORDS] = table_words(layout).numpy()
     o += TABLE_WORDS
@@ -253,8 +250,6 @@ def _build_layout_words(layout: Layout) -> np.ndarray:
          np.asarray(start.held_soup_tick)[:, None]], axis=1,
     )  # (P, 8)
     words[o:o + 8 * P] = players.reshape(-1)
-    o += 8 * MAX_P
-    words[o:o + len(effects)] = effects
     return words.astype(np.int32)
 
 

@@ -27,13 +27,18 @@ reach the kernels as the representative spec's `LayoutData` block.
     auto-resetting each lane to its own start. B4 reads the representative
     spec's tables for every lane, so these entries, like `check_pool_uniform`
     and the JAX B4 entry, refuse a pool whose lanes differ from it there
-    (ValueError, not `assert`, so `python -O` refuses it too).
+    (ValueError, not `assert`, so `python -O` refuses it too). Their
+    `_tiles` forms (`fused_pool_rollout_random_tiles`,
+    `fused_pool_rollout_actions_tiles`, as JAX `_fused_pool_rollout` takes
+    `pool_tiles`) take the pool packed once, for a caller that runs it many
+    times.
 
-Every public entry packs with `pool_data` or refuses pool data that
-`pool_data` did not make. On a CPU tensor the entries run the plain
-versions, B1's and B2's plain versions on the per-lane layout (`core.step`
-and `core.encoding` read every layout field per lane); that is also what the
-kernels are held against on the card. A tensor on any other device raises.
+Every public entry packs with `pool_data`; the `_tiles` entries refuse pool
+data that `pool_data` did not make for their spec. On a CPU tensor the
+entries run the plain versions, B1's and B2's plain versions on the
+per-lane layout (`core.step` and `core.encoding` read every layout field per
+lane); that is also what the kernels are held against on the card. A tensor
+on any other device raises.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS
 from overcooked_ai_tpu_torch.core.layout import Layout, layout_on, per_lane
 from overcooked_ai_tpu_torch.core.state import State
 from overcooked_ai_tpu_torch.ops import _build
-from overcooked_ai_tpu_torch.ops.fused_rollout import _M32, plain_rollout
+from overcooked_ai_tpu_torch.ops.fused_rollout import _M32, ROLLOUT_THREADS, plain_rollout
 from overcooked_ai_tpu_torch.ops.fused_train import (
     obs_tiles_to_nhwc,
     plain_train_step,
@@ -228,8 +233,11 @@ def fused_pool_train_step(spec0, lay: Layout, state: State, actions: torch.Tenso
     return nxt, obs_tiles_to_nhwc(pool.layout, obs), sparse, shaped, ev
 
 
-def _launch_rollout(pool: LanePool, state: State, seed: int, actions, num_steps: int,
-                    horizon: int):
+def launch_rollout_kernel(pool: LanePool, state: State, seed: int, actions, num_steps: int,
+                          horizon: int, threads: int = ROLLOUT_THREADS):
+    """B4 alone, on CUDA tensors, in blocks of `threads`; returns what
+    `fused_pool_rollout_actions_tiles` does (`actions` None: the murmur3
+    stream)."""
     global rollout_launches
     dev = state.t.device
     num_players, batch = state.held.shape
@@ -252,12 +260,46 @@ def _launch_rollout(pool: LanePool, state: State, seed: int, actions, num_steps:
             None if actions is None else actions.data_ptr(),
             ret.data_ptr(), batch, num_steps, horizon,
             ((seed & _M32) ^ 0x80000000) - 0x80000000,  # as a C int
-            int(actions is None),
-            torch.cuda.current_stream(dev).cuda_stream,
+            threads, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(err, "fused_pool_rollout")
     rollout_launches += 1
     return out, ret
+
+
+def _fused_pool_rollout_tiles(spec0, pool, state, seed, actions, num_steps, horizon):
+    if not isinstance(pool, LanePool) or pool.spec0 is not spec0:
+        raise ValueError("pack the per-lane layout for this spec with pool_data first")
+    if not pool.uniform:
+        raise ValueError(
+            "the pool rollout kernel needs every lane's recipe tables, shaping rewards and "
+            f"old_dynamics flag to equal spec0's ({spec0.name!r})"
+        )
+    dev = state.t.device
+    if dev.type == "cpu":
+        return plain_pool_rollout(pool.layout, state, seed, actions, num_steps, horizon)
+    if dev.type == "cuda":
+        return launch_rollout_kernel(pool, state, seed, actions, num_steps, horizon)
+    raise ValueError(f"no pool rollout kernel for device {dev}")
+
+
+def fused_pool_rollout_random_tiles(spec0, pool: LanePool, state: State, seed: int,
+                                    num_steps: int, horizon: int = 400):
+    """`fused_pool_rollout_random` on a pool packed once by
+    `pool_data(spec0, lay, device)`, whose lanes all have spec0's tables.
+
+    Returns (final_state, per-env return (B,) int32).
+    """
+    return _fused_pool_rollout_tiles(spec0, pool, state, seed, None, num_steps, horizon)
+
+
+def fused_pool_rollout_actions_tiles(spec0, pool: LanePool, state: State,
+                                     actions: torch.Tensor, horizon: int = 400):
+    """`fused_pool_rollout_actions` on a pool packed once by `pool_data`.
+
+    Returns (final_state, per-env return (B,) int32).
+    """
+    return _fused_pool_rollout_tiles(spec0, pool, state, 0, actions, actions.shape[0], horizon)
 
 
 def _fused_pool_rollout(spec0, lay, state, seed, actions, num_steps, horizon):
@@ -265,14 +307,7 @@ def _fused_pool_rollout(spec0, lay, state, seed, actions, num_steps, horizon):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no pool rollout kernel for device {dev}")
     pool = pool_data(spec0, lay, dev)
-    if not pool.uniform:
-        raise ValueError(
-            "the pool rollout kernel needs every lane's recipe tables, shaping rewards and "
-            f"old_dynamics flag to equal spec0's ({spec0.name!r})"
-        )
-    if dev.type == "cpu":
-        return plain_pool_rollout(pool.layout, state, seed, actions, num_steps, horizon)
-    return _launch_rollout(pool, state, seed, actions, num_steps, horizon)
+    return _fused_pool_rollout_tiles(spec0, pool, state, seed, actions, num_steps, horizon)
 
 
 def fused_pool_rollout_random(spec0, lay: Layout, state: State, seed: int, num_steps: int,

@@ -8,6 +8,10 @@ return. On a CPU tensor they run the plain version, a loop of
 `core.env.env_step`, which is also what the kernel is held against on the
 card. There is no other path: a tensor elsewhere raises.
 
+The kernel runs one env per thread, in blocks of `ROLLOUT_THREADS`
+threads whose envs keep their cells in the block's shared memory;
+`launch_kernel` takes another block size (the smoke's sweep).
+
 The random policy is the TPU kernel's murmur3 counter hash over (seed, env
 index b, player, step index), reproduced bit for bit: the plain version
 computes it in int64 with 32-bit masking (`murmur3_actions`).
@@ -29,6 +33,12 @@ from overcooked_ai_tpu_torch.core.state import State
 from overcooked_ai_tpu_torch.ops import _build
 
 launches = 0  # kernel launches since the caller last set it to 0
+
+# Threads a block of the rollout kernels (B2, B4). At the main path's 16384
+# envs 32, 64 and 128 are within 2% of each other on the H100 and 256 is
+# about a fifth slower (chip_smoke.py's sweep, PERF.md): a block of 64 keeps
+# one warp per scheduler on all but a few SMs.
+ROLLOUT_THREADS = 64
 
 _M32 = 0xFFFFFFFF
 
@@ -77,8 +87,10 @@ def plain_rollout(layout: Layout, state: State, seed: int, actions, num_steps: i
     return clamp_stamps(state), ret
 
 
-def _launch(layout: Layout, state: State, seed: int, actions, num_steps: int,
-            horizon: int):
+def launch_kernel(layout: Layout, state: State, seed: int, actions, num_steps: int,
+                  horizon: int, threads: int = ROLLOUT_THREADS):
+    """The kernel alone, on CUDA tensors, in blocks of `threads`; returns
+    what `fused_rollout_actions` does (`actions` None: the murmur3 stream)."""
     global launches
     dev = state.t.device
     num_players, batch = state.held.shape
@@ -105,8 +117,7 @@ def _launch(layout: Layout, state: State, seed: int, actions, num_steps: int,
             None if actions is None else actions.data_ptr(),
             ret.data_ptr(), batch, num_steps, horizon,
             ((seed & _M32) ^ 0x80000000) - 0x80000000,  # as a C int
-            int(actions is None),
-            torch.cuda.current_stream(dev).cuda_stream,
+            threads, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(err, "fused_rollout")
     launches += 1
@@ -118,7 +129,7 @@ def _fused_rollout(layout, state, seed, actions, num_steps, horizon):
     if dev.type == "cpu":
         return plain_rollout(layout, state, seed, actions, num_steps, horizon)
     if dev.type == "cuda":
-        return _launch(layout, state, seed, actions, num_steps, horizon)
+        return launch_kernel(layout, state, seed, actions, num_steps, horizon)
     raise ValueError(f"no rollout kernel for device {dev}")
 
 

@@ -256,3 +256,49 @@ def test_mixed_recipe_pool_raises_in_every_entry(flags):
     assert ran == {"pool_data", "fused_pool_train_step", "fused_pool_train_step_tiles",
                    "collect_rollout"}, out.stdout
     assert lines[-1] == ("asserts off" if flags else "asserts on")
+
+
+@pytest.mark.parametrize("entry", ["random", "actions"])
+def test_tiles_entries_take_a_packed_pool(entry):
+    """`fused_pool_rollout_*_tiles` on a pool packed once equal the public
+    entries, which pack on every call, bit for bit; they refuse a pool
+    packed for another spec, a bare layout, a mixed pool, and a state on a
+    device without a kernel."""
+    specs, _ = make_pools(n=4, seed=1)
+    spec0 = fused_pool.check_pool_uniform(specs)
+    lay = gen.gather_lanes(gen.stack_layouts(specs), np.arange(B) % len(specs))
+    state = batch_reset(lay, B, "cpu")
+    T, horizon = 60, 25
+    acts = torch.from_numpy(
+        np.random.RandomState(2).choice(6, size=(T, 2, B), p=PROB).astype(np.int32))
+
+    def tiles(spec, pool, st=state):
+        if entry == "random":
+            return fused_pool.fused_pool_rollout_random_tiles(spec, pool, st, 9, T, horizon=horizon)
+        return fused_pool.fused_pool_rollout_actions_tiles(spec, pool, st, acts, horizon=horizon)
+
+    if entry == "random":
+        want = fused_pool.fused_pool_rollout_random(spec0, lay, state, 9, T, horizon=horizon)
+    else:
+        want = fused_pool.fused_pool_rollout_actions(spec0, lay, state, acts, horizon=horizon)
+    pool = fused_pool.pool_data(spec0, lay, "cpu")
+    fused_pool.rollout_launches = 0
+    got = tiles(spec0, pool)
+    assert fused_pool.rollout_launches == 0  # CPU tensors: the plain version ran
+    assert_state(got[0], [w.numpy() for w in want[0]])
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    assert int(got[1].sum()) >= 0 and not got[0].t.eq(state.t).all()
+
+    other = make_pools(n=4, seed=1)[0][0]  # the same layout, another spec object
+    for bad_spec, bad_pool in ((other, pool), (spec0, lay)):
+        with pytest.raises(ValueError, match="pool_data"):
+            tiles(bad_spec, bad_pool)
+    g = gen.LayoutGenerator(rng=np.random.RandomState(5))
+    mixed = [g.generate_spec(name=f"m{i}", **cfg) for i, cfg in enumerate(MIXED)]
+    mixed_lay = gen.gather_lanes(gen.stack_layouts(mixed), np.arange(B) % len(mixed))
+    with pytest.raises(ValueError, match="recipe tables"):
+        tiles(mixed[0], fused_pool.pool_data(mixed[0], mixed_lay, "cpu"),
+              batch_reset(mixed_lay, B, "cpu"))
+    meta = State(*(x.to("meta") for x in state))
+    with pytest.raises(ValueError, match="no pool rollout kernel"):
+        tiles(spec0, pool, meta)
