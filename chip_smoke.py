@@ -21,7 +21,7 @@ Phases, one line each with its seconds:
      and at 8 envs, and a sweep of its tile (envs and threads a block);
   6. env throughput: `rollout_random` at 16384 envs x 4000 steps on B2,
      then B2 held against its plain version at 16384 envs x 450 steps, and
-     B2's device time (profiler) at 16384 x 450 and 16384 x 4000;
+     B2's device time at 16384 x 450 and 16384 x 4000;
   7. B4 parity: the pool whole-horizon kernel against its plain version on
      per-lane layouts, bit for bit: the main path's 16384 envs over 450
      steps, a ragged batch, the 7x5 outer shape, an old-dynamics pool and 1,
@@ -42,9 +42,10 @@ Phases, one line each with its seconds:
      crafted `cramped_room` states with cooking soups on counters, idle full
      soups on counters under old dynamics, and a cooking soup carried from
      one counter to another by explicit actions.
-A kernel's time is the profiler's device time; where the profiler records
-none (it has, late in a run), CUDA events time the card instead, and a
-`[timing]` line names those kernels.
+B1's and B3's times are the profiler's device time (a timing whose session
+records no launch of its kernel is made again, and fails the run after four
+sessions with none); B2's and B4's are CUDA events' around one launch of
+the kernel alone, queued behind untimed launches.
 The line before the last is the kernel table as JSON; the last line is the
 device record. Any failure exits non-zero. Needs one CUDA card; imports
 nothing of JAX.
@@ -60,9 +61,14 @@ import time
 import warnings
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-# INT32 outside the tensor cores: a Hopper SM issues 64 INT32 lanes per
-# 128 FP32 lanes, so half the data sheet's 67e12 float32 rate
-H100_INT32_OPS_PER_S = 33.5e12
+# INT32 outside the tensor cores: the data sheet's 67e12 float32 FLOP/s is
+# 128 lanes an SM, an FMA counted as two; a Hopper SM has 64 INT32 lanes,
+# one operation each a clock, so a quarter of it
+H100_INT32_OPS_PER_S = 67e12 / 4
+# the operation bound as the parent tree's smoke counted it (twice the rate
+# above, and B4's cook pass over every cell): printed beside the bound so
+# that the parent's and this tree's times divide the same work
+OLD_INT32_OPS_PER_S = 33.5e12
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]  # interact-heavy random play
 # a pool whose lanes differ in recipe value, shaping rewards, and old
 # dynamics with another cook time (B3 reads each lane's tables)
@@ -282,33 +288,49 @@ def main() -> int:
             return 0
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    event_timed = []  # kernels the profiler did not see, timed by CUDA events instead
+    redone = []  # kernels whose timing took more than one profiler session
 
-    def kernel_ms(name, fn, launches=1):
+    def kernel_ms(name, fn):
         """fn's result and the mean device ms of one launch of the kernel
         whose name holds `name`, over the profiler's records of fn's
-        launches. The profiler was seen to miss a few of 50 short launches,
-        so the mean is over the records, not the launches made; and, late in
-        a run, to record no kernel at all. A call with no record is made
-        again, once, and then timed by CUDA events around fn's `launches`
-        launches, the card kept busy while the host queues them (so the
-        events time the card, not the host); so are the run's later calls."""
-        for _ in range(0 if event_timed else 2):
+        launches. The profiler drops a device record whose time stamp falls
+        outside its capture window (counted as "Out-of-range" in its log at
+        KINETO_LOG_LEVEL=1): now and then a few of 50 short launches, or a
+        session's only launch. So fn runs 20 ms inside the window's ends, the
+        mean is over the records, not the launches made, and a session with
+        no record is made again; four without one fail the run."""
+        for _ in range(4):
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+                time.sleep(0.02)
                 out = fn()
                 torch.cuda.synchronize()
+                time.sleep(0.02)
             mine = [e for e in p.key_averages() if dev_time(e) > 0 and name in e.key]
             seen = sum(e.count for e in mine)
             if seen:
                 return out, sum(dev_time(e) for e in mine) / 1e3 / seen
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)  # about 50 ms of the card's clock
-        e0.record()
-        out = fn()
-        e1.record()
-        torch.cuda.synchronize()
-        event_timed.append(name)
-        return out, e0.elapsed_time(e1) / launches
+            redone.append(name)
+        raise SystemExit(f"the profiler recorded no launch of {name} in four sessions")
+
+    def card_ms(fn):
+        """fn's result and the device ms of its one kernel launch: CUDA
+        events around fn, queued behind three untimed calls of it, so that
+        the card is busy while the host queues the timed launch; the median
+        of three. fn launches the kernel alone. For B2 and B4, whose launches
+        take from a few tenths of a ms: after the run's second trace (phase
+        9) the profiler drops most of their records as outside its capture
+        window, whatever the padding (PERF.md)."""
+        times = []
+        for _ in range(3):
+            for _ in range(3):
+                fn()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return out, sorted(times)[1]
 
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -337,7 +359,7 @@ def main() -> int:
         act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
         n = 50
         _, ms = kernel_ms("train_step_kernel<false>", lambda: [
-            fused_train.fused_train_step_tiles(lay, state, act, horizon=400) for _ in range(n)], n)
+            fused_train.fused_train_step_tiles(lay, state, act, horizon=400) for _ in range(n)])
         _, secs = synced(lambda: [fused_train.plain_train_step(lay_dev, state, act, 400, 400)
                                   for _ in range(10)])
         b1_time[B] = (ms, secs * 1e3 / 10, B * env_bytes / H100_BYTES_PER_S * 1e3)
@@ -360,14 +382,14 @@ def main() -> int:
                 _, sweep[f"B{B}_E{envs}_T{threads}"] = kernel_ms(
                     "train_step_kernel<false>", lambda: [
                         fused_train.launch_kernel(lay, state, act, 400, 400, plan)
-                        for _ in range(n)], n)
+                        for _ in range(n)])
     log("[5 B1 tile sweep] ms/launch " + json.dumps({k: round(v, 5) for k, v in sweep.items()}))
 
     # ---- 6. env throughput on B2: the main path's run, then the kernel held
     # against its plain version at the same 16384 envs over 450 steps (one
     # auto-reset), which also gives the time, plain time and bound of the
     # kernel table; the plain version at 4000 steps would take most of a
-    # minute. The kernel's device time at both lengths, from the profiler
+    # minute. The kernel's device time at both lengths
     B, T, T_CMP = 16384, 4000, 450
     state = batch_reset(lay, B, dev)
     lay_b2, state_b2 = lay, state
@@ -378,11 +400,8 @@ def main() -> int:
         raise SystemExit(f"rollout_random launched B2 {b2_launches} times, want 1")
     if not (bool(final.t.eq(T % 400).all()) and int(total) > 0):  # ten whole episodes
         raise SystemExit("rollout_random: wrong final timestep or no delivery at all")
-    b2_name = "rollout_kernel<2, false"  # B2 at two players, either action source
-    got, b2_ms = kernel_ms(b2_name, lambda: fused_rollout.fused_rollout_random(
-        lay, state, 1, T_CMP, horizon=400))
-    _, b2_main_ms = kernel_ms(b2_name, lambda: fused_rollout.fused_rollout_random(
-        lay, state, 1, T, horizon=400))
+    got, b2_ms = card_ms(lambda: fused_rollout.launch_kernel(lay, state, 1, None, T_CMP, 400))
+    _, b2_main_ms = card_ms(lambda: fused_rollout.launch_kernel(lay, state, 1, None, T, 400))
     want, t_plain = synced(
         lambda: fused_rollout.plain_rollout(lay_dev, state, 1, None, T_CMP, 400)
     )
@@ -397,16 +416,17 @@ def main() -> int:
     ops_per_env_step = 105 * P + 15 * n_effect + 15
     b2_bytes = B * (2 * state_bytes + 4)
 
-    def b2_bound(steps):
-        return max(B * steps * ops_per_env_step / H100_INT32_OPS_PER_S,
-                   b2_bytes / H100_BYTES_PER_S) * 1e3
+    def b2_bound(steps, rate=H100_INT32_OPS_PER_S):
+        return max(B * steps * ops_per_env_step / rate, b2_bytes / H100_BYTES_PER_S) * 1e3
 
     b2_bound_ms, b2_main_bound_ms = b2_bound(T_CMP), b2_bound(T)
+    b2_old_bounds = {T_CMP: b2_bound(T_CMP, OLD_INT32_OPS_PER_S), T: b2_bound(T, OLD_INT32_OPS_PER_S)}
     log(f"[6 B2 throughput] rollout_random {B}x{T}: wall "
         f"{t_b2 * 1e3:.3f} ms = {B * T / t_b2:.0f} env-steps/s, return={int(total)}; "
-        f"B2 launches={b2_launches} B1={b1_main6}; kernel (profiler) {b2_main_ms:.4f} ms, "
-        f"bound {b2_main_bound_ms:.4f} ms; {B}x{T_CMP}: kernel {b2_ms:.4f} ms, "
-        f"plain {t_plain * 1e3:.1f} ms, bound {b2_bound_ms:.4f} ms, max_abs_err={b2_err}")
+        f"B2 launches={b2_launches} B1={b1_main6}; kernel (events) {b2_main_ms:.4f} ms, "
+        f"bound {b2_main_bound_ms:.4f} ms (old count {b2_old_bounds[T]:.4f}); {B}x{T_CMP}: kernel "
+        f"{b2_ms:.4f} ms, plain {t_plain * 1e3:.1f} ms, bound {b2_bound_ms:.4f} ms (old count "
+        f"{b2_old_bounds[T_CMP]:.4f}), max_abs_err={b2_err}")
 
     # ---- the layout-pool path (B3, B4): pools as the JAX bench.py makes them
     def make_pool(n, seed=0, outer_shape=(5, 4), cfgs=None, **kw):
@@ -437,9 +457,9 @@ def main() -> int:
     B, T_CMP = 16384, 450  # the main path's envs; 450 steps cross the auto-reset at 400
     lay_b4 = lanes_of(specs64, B, 1)
     state_b4 = batch_reset(lay_b4, B, dev)
-    b4_name = "rollout_kernel<2, true"  # B4 at two players, either action source
-    got, b4_cmp_ms = kernel_ms(b4_name, lambda: (
-        fused_pool.fused_pool_rollout_random(spec_pool, lay_b4, state_b4, 1, T_CMP, horizon=400)))
+    pool_b4 = fused_pool.pool_data(spec_pool, lay_b4, dev)
+    got, b4_cmp_ms = card_ms(lambda: fused_pool.launch_rollout_kernel(
+        pool_b4, state_b4, 1, None, T_CMP, 400))
     want, b4_plain_s = synced(lambda: fused_pool.plain_pool_rollout(lay_b4, state_b4, 1, None,
                                                                      T_CMP, 400))
     b4_err = max_err((*got[0], got[1]), (*want[0], want[1]))
@@ -546,7 +566,7 @@ def main() -> int:
     act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
     _, b3_ms = kernel_ms("train_step_kernel<true>", lambda: [
         fused_pool.fused_pool_train_step_tiles(spec_pool, pool, state, act, horizon=400)
-        for _ in range(n)], n)
+        for _ in range(n)])
     _, secs = synced(lambda: [fused_pool.plain_pool_train_step(pool.layout, state, act, 400, 400)
                               for _ in range(10)])
     b3_plain_ms = secs * 1e3 / 10
@@ -580,45 +600,49 @@ def main() -> int:
         spec_pool, pool_b4, state_b4, 1, T, horizon=400))
     if max_err((*tiles_out[0], tiles_out[1]), (*final, ret)):
         raise SystemExit("fused_pool_rollout_random_tiles disagrees with the public entry")
-    _, b4_main_ms = kernel_ms(b4_name, lambda: fused_pool.fused_pool_rollout_random_tiles(
-        spec_pool, pool_b4, state_b4, 1, T, horizon=400))
+    _, b4_main_ms = card_ms(lambda: fused_pool.launch_rollout_kernel(
+        pool_b4, state_b4, 1, None, T, 400))
     b4_outside_ms = {"public": t_b4 * 1e3 - b4_main_ms, "tiles": t_b4_tiles * 1e3 - b4_main_ms}
-    # integer operations of one env step, counted by hand from
-    # csrc/overcooked_step.cuh under POOL: about 110 per player (B2's 105 and
-    # the terrain read from the cell word), 4 per cell for the cook-tick pass
-    # over every cell, 11 more per pot cell of the lane (where soups cook), 15
-    # for collision, reset and return; the lanes' pots from their terrain
+    # integer operations of one env step: B2's count (the step is B2's under
+    # POOL too), with each lane's pot and start-soup cells; and, for the
+    # comparison with the parent, the parent's count: 110 per player, 4 per
+    # cell for a cook pass over every cell, 11 more per pot cell, 15
+    n_live = int(((lay_b4.terrain == TERRAIN_POT) | (lay_b4.start_state.obj == OBJ_SOUP)).sum())
+    ops_per_step = B * (105 * P + 15) + 15 * n_live
     pots = int((lay_b4.terrain == TERRAIN_POT).sum())
-    ops_per_step = B * (110 * P + 4 * HW + 15) + 11 * pots
+    old_ops_per_step = B * (110 * P + 4 * HW + 15) + 11 * pots
 
-    def b4_bound(steps):
+    def b4_bound(steps, ops=ops_per_step, rate=H100_INT32_OPS_PER_S):
         """the operations of `steps` steps; the state in and out, the return,
         the reset words at load and at each auto-reset, the start players at
         each auto-reset"""
         resets = steps // 400
         b4_bytes = B * (2 * state_bytes + 4 + 4 * HW * (1 + resets) + 32 * P * resets)
-        return max(ops_per_step * steps / H100_INT32_OPS_PER_S, b4_bytes / H100_BYTES_PER_S) * 1e3
+        return max(ops * steps / rate, b4_bytes / H100_BYTES_PER_S) * 1e3
 
     b4_ops = ops_per_step * T_CMP
     b4_bound_ms, b4_main_bound_ms = b4_bound(T_CMP), b4_bound(T)
+    b4_old_bounds = {steps: b4_bound(steps, old_ops_per_step, OLD_INT32_OPS_PER_S)
+                     for steps in (T_CMP, T)}
     log(f"[10 pool throughput] fused_pool_rollout_random {B}x{T}: wall {t_b4 * 1e3:.3f} ms, "
-        f"kernel {b4_main_ms:.4f} ms (profiler) = {B * T / b4_main_ms * 1e3:.0f} env-steps/s, "
-        f"bound {b4_main_bound_ms:.4f} ms, return={int(ret.sum())}; B1/B2/B3/B4 "
+        f"kernel {b4_main_ms:.4f} ms (events) = {B * T / b4_main_ms * 1e3:.0f} env-steps/s, "
+        f"bound {b4_main_bound_ms:.4f} ms (old count {b4_old_bounds[T]:.4f}), "
+        f"return={int(ret.sum())}; B1/B2/B3/B4 "
         f"launches={b4_counts}; packed once ({t_pack * 1e3:.3f} ms), "
         f"fused_pool_rollout_random_tiles wall {t_b4_tiles * 1e3:.3f} ms; wall outside the "
         f"kernel: public {b4_outside_ms['public']:.3f} ms, tiles {b4_outside_ms['tiles']:.3f} "
         f"ms; {B}x{T_CMP}: kernel {b4_cmp_ms:.4f} ms, plain {b4_plain_s * 1e3:.1f} ms, bound "
-        f"{b4_bound_ms:.4f} ms ({b4_ops} ops), max_abs_err={b4_err}")
+        f"{b4_bound_ms:.4f} ms ({b4_ops} ops; old count {b4_old_bounds[T_CMP]:.4f}), "
+        f"max_abs_err={b4_err}")
 
     # the threads a block of B2 and B4, at the main path's 16384 envs over
     # 450 steps (ROLLOUT_THREADS is the constant)
     rollout_sweep = {}
     for threads in (32, 64, 128, 256):
-        _, rollout_sweep[f"B2_T{threads}"] = kernel_ms(b2_name, lambda: fused_rollout.launch_kernel(
+        _, rollout_sweep[f"B2_T{threads}"] = card_ms(lambda: fused_rollout.launch_kernel(
             lay_b2, state_b2, 1, None, T_CMP, 400, threads))
-        _, rollout_sweep[f"B4_T{threads}"] = kernel_ms(
-            b4_name, lambda: fused_pool.launch_rollout_kernel(
-                pool_b4, state_b4, 1, None, T_CMP, 400, threads))
+        _, rollout_sweep[f"B4_T{threads}"] = card_ms(lambda: fused_pool.launch_rollout_kernel(
+            pool_b4, state_b4, 1, None, T_CMP, 400, threads))
     log("[10 rollout sweep] ms at 16384x450 by threads a block "
         + json.dumps({k: round(v, 5) for k, v in rollout_sweep.items()}))
 
@@ -686,7 +710,8 @@ def main() -> int:
          "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": t_plain * 1e3,
          "bound_ms": b2_bound_ms, "bound_by": "operations", "library_ms": None,
          "steps": T_CMP, "main_steps": T, "main_ms": b2_main_ms,
-         "main_bound_ms": b2_main_bound_ms, "threads": fused_rollout.ROLLOUT_THREADS,
+         "main_bound_ms": b2_main_bound_ms, "old_count_bound_ms": b2_old_bounds[T_CMP],
+         "old_count_main_bound_ms": b2_old_bounds[T], "threads": fused_rollout.ROLLOUT_THREADS,
          "threads_sweep_ms": {k: v for k, v in rollout_sweep.items() if k.startswith("B2")},
          "registers_spills": {k: v for k, v in rollout_regs.items() if ",0," in k}},
         {"name": "fused_pool_train_step (B3)", "route": "cuda",
@@ -700,14 +725,14 @@ def main() -> int:
          "max_abs_err": b4_err, "ms": b4_cmp_ms, "plain_ms": b4_plain_s * 1e3,
          "bound_ms": b4_bound_ms, "bound_by": "operations", "library_ms": None,
          "steps": T_CMP, "main_steps": T, "main_ms": b4_main_ms,
-         "main_bound_ms": b4_main_bound_ms, "threads": fused_rollout.ROLLOUT_THREADS,
+         "main_bound_ms": b4_main_bound_ms, "old_count_bound_ms": b4_old_bounds[T_CMP],
+         "old_count_main_bound_ms": b4_old_bounds[T], "threads": fused_rollout.ROLLOUT_THREADS,
          "threads_sweep_ms": {k: v for k, v in rollout_sweep.items() if k.startswith("B4")},
          "registers_spills": {k: v for k, v in rollout_regs.items() if ",1," in k},
          "entry_outside_ms": b4_outside_ms},
     ]}
-    if event_timed:
-        log(f"[timing] timed by CUDA events, the profiler having recorded none: {event_timed}")
-    log(f"[done] {time.perf_counter() - t_start:.1f}s wall")
+    log(f"[done] {time.perf_counter() - t_start:.1f}s wall; profiler sessions made again for "
+        f"want of a record: {len(redone)} {sorted(set(redone))}")
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
