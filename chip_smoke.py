@@ -41,7 +41,14 @@ Phases, one line each with its seconds:
  11. soups off the pots: B2 and B4 held against their plain versions on
      crafted `cramped_room` states with cooking soups on counters, idle full
      soups on counters under old dynamics, and a cooking soup carried from
-     one counter to another by explicit actions.
+     one counter to another by explicit actions;
+ 12. the learner at full width: `make_ppo`'s `train_iteration` at the JAX
+     bench.py's train-iteration shape (2048 envs x 400 steps, minibatch
+     32768 env steps, 8 epochs) on `cramped_room`, its wall, its split into
+     rollout, GAE and SGD by CUDA events on a further iteration, and a
+     profiled one; one pool iteration on a regenerated 64-layout pool;
+     a small iteration on the card against the CPU learner; the two
+     training CLIs in process, into a temporary directory.
 B1's and B3's times are the profiler's device time (a timing whose session
 records no launch of its kernel is made again, and fails the run after four
 sessions with none); B2's and B4's are CUDA events' around one launch of
@@ -53,10 +60,14 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -98,6 +109,7 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from overcooked_ai_tpu_torch.cli import train_ppo, train_ppo_from_params
     from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP, TERRAIN_POT
     from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS
     from overcooked_ai_tpu_torch.core.env import batch_reset, rollout_random
@@ -115,7 +127,12 @@ def main() -> int:
     from overcooked_ai_tpu_torch.core.state import State
     from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
     from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
-    from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout, make_ppo_eval
+    from overcooked_ai_tpu_torch.training.ppo import (
+        PPOConfig,
+        collect_rollout,
+        make_ppo,
+        make_ppo_eval,
+    )
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # the net in full float32
@@ -694,13 +711,171 @@ def main() -> int:
     if soups_err:
         raise SystemExit("B2 or B4 disagrees with its plain version on soups off the pots")
 
+    # ---- 12. the learner on the card at full width: make_ppo's
+    # train_iteration at the JAX bench.py's train-iteration shape (2048 envs x
+    # 400 steps, minibatch 32768 env steps, 8 epochs: 200 Adam steps), on
+    # cramped_room (B1) and on the 64-layout pool with a regenerated pool
+    # passed in (B3); a small iteration on the card against the CPU learner;
+    # the two training CLIs in process, writing to a temporary directory
+    t0 = time.perf_counter()
+    cfg_it = PPOConfig(num_envs=2048, sgd_minibatch_size=32768)
+    init_fn, train_it = make_ppo(spec, cfg_it, dev)
+    ts = init_fn(0)
+    ts, _ = train_it(ts)  # warm-up
+    kl_before, steps_before = ts.kl_coeff.item(), ts.env_steps.item()
+    reset_counts()
+    (ts, m), t_iter = synced(lambda: train_it(ts))
+    iter_counts = counts()
+    b1_iter_launches = iter_counts[0]
+    if iter_counts != (cfg_it.horizon, 0, 0, 0):
+        raise SystemExit(f"train_iteration launched B1/B2/B3/B4 {iter_counts} times, want B1 "
+                         f"{cfg_it.horizon} times and nothing else")
+    metrics = {k: v.item() for k, v in m._asdict().items()}
+    steps_after = ts.env_steps.item()
+    if not all(np.isfinite(v) for v in metrics.values()) or steps_after != (
+            steps_before + 2048 * 400):
+        raise SystemExit(f"train_iteration metrics not finite or env_steps wrong: {metrics}")
+    # where an iteration's time goes: CUDA events at the phase boundaries of
+    # a further iteration (the timed one above has no event in it). From the
+    # rollout's end on (GAE, the SGD loop, the KL update), a host sync that
+    # PyTorch's sync debug mode detects raises and fails the run
+    marks = {name: torch.cuda.Event(enable_timing=True)
+             for name in ("start", "rollout", "advantages", "end")}
+
+    def mark(name, _out):
+        marks[name].record()
+        if name == "rollout":
+            torch.cuda.set_sync_debug_mode("error")
+
+    marks["start"].record()
+    try:
+        ts, _ = train_it(ts, on_phase=mark)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    marks["end"].record()
+    torch.cuda.synchronize()
+    split = {"rollout": marks["start"].elapsed_time(marks["rollout"]),
+             "gae_std": marks["rollout"].elapsed_time(marks["advantages"]),
+             "sgd": marks["advantages"].elapsed_time(marks["end"])}
+    n_samples = 2 * 2048 * 400
+    mb = min(2 * cfg_it.sgd_minibatch_size, n_samples)
+    log(f"[12a learner] {time.perf_counter() - t0:.2f}s train_iteration cramped_room 2048x400, "
+        f"{n_samples // mb} minibatches of {mb} x {cfg_it.num_sgd_iter} epochs: wall "
+        f"{t_iter:.3f}s = {2048 * 400 / t_iter:.0f} env-steps/s; split (events, next "
+        f"iteration, no host sync after the rollout) ms "
+        + json.dumps({k: round(v, 1) for k, v in split.items()})
+        + f"; B1/B2/B3/B4 launches={iter_counts}; kl_coeff {kl_before} -> "
+        f"{metrics['kl_coeff']} (changed: {kl_before != metrics['kl_coeff']}), env_steps "
+        f"{steps_after:.0f}; metrics " + json.dumps({k: round(v, 6) for k, v in
+                                                     metrics.items()}))
+
+    # and on the device: a profiled iteration, device time by kernel against
+    # its wall. The profiler may drop records (phase 9's note above), so the
+    # line says how many of the iteration's 400 B1 launches it recorded. Only
+    # device activity: an iteration's host ops would take the profiler tens
+    # of seconds to sum
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        (ts, _), t_traced = synced(lambda: train_it(ts))
+    by_kernel = sorted(((dev_time(e), e.count, e.key) for e in prof.key_averages()
+                        if dev_time(e) > 0), reverse=True)
+    busy_us = sum(us for us, _, _ in by_kernel)
+    b1_seen = sum(n for _, n, k in by_kernel if "train_step_kernel<false>" in k)
+    top = "; ".join(f"{k[:48]} x{n} {us / 1e3:.1f}ms" for us, n, k in by_kernel[:8])
+    log(f"[12a learner trace] {time.perf_counter() - t0:.2f}s one iteration wall "
+        f"{t_traced * 1e3:.1f}ms device busy "
+        f"{busy_us / 1e3:.1f}ms (idle {1 - busy_us / 1e6 / t_traced:.1%}), B1 records "
+        f"{b1_seen}/400; top: {top}")
+
+    t0 = time.perf_counter()
+    init_pool, train_pool = make_ppo(specs64, cfg_it, dev)
+    ts_pool = init_pool(0)
+    fresh = stack_layouts([layout_gen((5, 4), 1).generate_spec(name=f"regen_{i}")
+                           for i in range(64)])
+    reset_counts()
+    (ts_pool, m_pool), t_pool_iter = synced(lambda: train_pool(ts_pool, pool=fresh))
+    pool_iter_counts = counts()
+    b3_iter_launches = pool_iter_counts[2]
+    if pool_iter_counts != (0, 0, cfg_it.horizon, 0):
+        raise SystemExit(f"pool train_iteration launched B1/B2/B3/B4 {pool_iter_counts} times, "
+                         f"want B3 {cfg_it.horizon} times and nothing else")
+    if not all(np.isfinite(v.item()) for v in m_pool):
+        raise SystemExit("pool train_iteration metrics not finite")
+    log(f"[12b pool learner] {time.perf_counter() - t0:.2f}s train_iteration 64-layout pool "
+        f"(regenerated) 2048x400: wall {t_pool_iter:.3f}s = {2048 * 400 / t_pool_iter:.0f} "
+        f"env-steps/s (first call, no warm-up); B1/B2/B3/B4 launches={pool_iter_counts}; "
+        f"shaped={m_pool.episode_shaped_reward.item():.3f} kl={m_pool.kl.item():.3g}")
+
+    # a small iteration on the card and on the CPU from the same params, with
+    # the same actions and permutations: the rollout's integer outputs bit for
+    # bit, the losses within rtol 1e-4 / atol 1e-6 and the params within 1e-5,
+    # the tolerances the CPU learner is held to against JAX
+    # (tests/test_torch_ppo_learner.py)
+    t0 = time.perf_counter()
+    cfg_s = PPOConfig(num_envs=32, horizon=50, num_sgd_iter=2, sgd_minibatch_size=400)
+    small_acts = np.random.RandomState(12).choice(6, size=(50, 64), p=PROB)
+    small_perms = [np.random.RandomState(100 + e).permutation(2 * 32 * 50) for e in range(2)]
+    small = {}
+    for d in (dev, torch.device("cpu")):
+        init_s, train_s = make_ppo(spec, cfg_s, d)
+        kept = {}
+        ts_s, m_s = train_s(init_s(3),
+                            sample_fn=lambda _logits, t, d=d: torch.from_numpy(small_acts[t]).to(d),
+                            perm_fn=lambda e, d=d: torch.from_numpy(small_perms[e]).to(d),
+                            on_phase=kept.setdefault)
+        small[d.type] = (ts_s, m_s, kept["rollout"])
+    (ts_c, m_c, ro_c), (ts_h, m_h, ro_h) = small["cuda"], small["cpu"]
+    small_int_err = max_err([getattr(ro_c, f).cpu() for f in ("obs", "action", "sparse",
+                                                              "shaped", "events")],
+                            [getattr(ro_h, f) for f in ("obs", "action", "sparse", "shaped",
+                                                        "events")])
+    losses = [(getattr(m_c, f).item(), getattr(m_h, f).item())
+              for f in ("policy_loss", "vf_loss", "kl", "entropy", "episode_total_reward")]
+    small_loss_ok = all(abs(a - b) <= 1e-6 + 1e-4 * abs(b) for a, b in losses)
+    small_loss_err = max(abs(a - b) for a, b in losses)
+    small_param_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        ts_c.net.state_dict().values(), ts_h.net.state_dict().values()))
+    log(f"[12c card vs CPU] {time.perf_counter() - t0:.2f}s train_iteration 32x50, 2 epochs of "
+        f"4 minibatches, same params, actions and permutations: rollout integers "
+        f"max_abs_err={small_int_err}, losses max_abs_err {small_loss_err:.3g}, "
+        f"params max_abs_err {small_param_err:.3g}; shaped={m_c.episode_shaped_reward.item()}")
+    if small_int_err or not small_loss_ok or small_param_err > 1e-5:
+        raise SystemExit("the learner on the card disagrees with the CPU learner")
+
+    # the two training CLIs, in process, on the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()) as out:
+        run = os.path.join(tmp, "run")
+        cli = ["--device", "cuda", "--local-testing", "--out", run]
+        train_ppo.main(cli + ["--iters", "2", "--eval-interval", "2"])
+        train_ppo.main(cli + ["--iters", "1", "--resume"])
+        with open(os.path.join(run, "config.json")) as f:
+            cli_latest = json.load(f)["latest_step"]
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        cli_iters = [r["step"] for r in rows if "kl" in r]
+        cli_eval = [r["eval_sparse_reward"] for r in rows if "eval_sparse_reward" in r]
+        pool_run = os.path.join(tmp, "pool")
+        train_ppo_from_params.main(["--device", "cuda", "--local-testing", "--regen-every",
+                                    "1", "--iters", "1", "--out", pool_run])
+        with open(os.path.join(pool_run, "config.json")) as f:
+            pool_latest = json.load(f)["latest_step"]
+    cli_lines = len(out.getvalue().splitlines())
+    log(f"[12d CLIs] {time.perf_counter() - t0:.2f}s train_ppo --local-testing 2 iters then "
+        f"--resume 1: latest_step={cli_latest}, iteration rows {cli_iters}, eval {cli_eval}; "
+        f"train_ppo_from_params --regen-every 1: latest_step={pool_latest}; {cli_lines} lines "
+        f"of their output")
+    if (cli_latest, cli_iters, len(cli_eval), pool_latest) != (3, [1, 2, 3], 1, 1):
+        raise SystemExit("the training CLIs did not train, checkpoint, resume and log")
+
     table = {"kernels": [
         {"name": "fused_train_step (B1)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_train.cu",
-         "replaces": "overcooked_ai_tpu/ops/fused_train.py:83", "launches": b1_launches,
+         "replaces": "overcooked_ai_tpu/ops/fused_train.py:83", "launches": b1_iter_launches,
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_bound_ms, "bound_by": "bytes", "library_ms": None,
-         "eval_launches": b1_launches - b1_collect, "eval_ms": b1_time[8][0],
+         "collect_launches": b1_collect, "eval_launches": b1_launches - b1_collect,
+         "eval_ms": b1_time[8][0],
          "eval_plain_ms": b1_time[8][1], "eval_bound_ms": b1_time[8][2],
          "tile_envs": fused_train.TILE_ENVS, "block_threads": fused_train.BLOCK_THREADS,
          "tile_sweep_ms": sweep},
@@ -716,9 +891,10 @@ def main() -> int:
          "registers_spills": {k: v for k, v in rollout_regs.items() if ",0," in k}},
         {"name": "fused_pool_train_step (B3)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_pool_train.cu",
-         "replaces": "overcooked_ai_tpu/ops/fused_pool.py:513", "launches": b3_launches,
+         "replaces": "overcooked_ai_tpu/ops/fused_pool.py:513", "launches": b3_iter_launches,
          "max_abs_err": b3_err, "ms": b3_ms, "plain_ms": b3_plain_ms,
-         "bound_ms": b3_bound_ms, "bound_by": "bytes", "library_ms": None},
+         "bound_ms": b3_bound_ms, "bound_by": "bytes", "library_ms": None,
+         "collect_launches": b3_launches},
         {"name": "fused_pool_rollout (B4)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_pool_rollout.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_pool.py:286", "launches": b4_launches,

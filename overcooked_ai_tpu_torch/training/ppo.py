@@ -1,12 +1,11 @@
-"""PPO self-play, part one: the configuration, rollout collection and
-evaluation (port of the acting half of `overcooked_ai_tpu.training.ppo`).
+"""PPO self-play on the card (port of `overcooked_ai_tpu.training.ppo`).
 
 `collect_rollout` mirrors the JAX learner's fused rollout (`rollout_fused`)
 for one fixed layout: the initial obs comes from the plain encoding, then
 each of the T steps runs the policy net, samples the joint action and takes
 one fused env step (`ops/fused_train.py`, the B1 kernel on a CUDA tensor)
 with `reset_horizon = T + 1`, so the rollout is exactly one episode from
-the start state and never auto-resets. It returns what GAE will need.
+the start state and never auto-resets. It returns what GAE needs.
 
 Given a list of specs it runs in pool mode, the JAX learner's variable-MDP
 mode: each env lane draws a layout of the pool (`pool_idx`), starts from
@@ -15,18 +14,28 @@ that layout's start state, and every step is one launch of the pool kernel
 share grid shape and player count; their recipe tables, shaping rewards
 and old-dynamics flags may differ, lane by lane.
 
+`make_ppo` is the JAX `make_ppo`: one `train_iteration` anneals the
+shaping and entropy coefficients by env steps, collects one rollout, runs
+GAE (terminal at the horizon, no bootstrap), standardises the advantages,
+and takes `num_sgd_iter` epochs of minibatch SGD on the clipped-surrogate
+loss with value clipping and a KL(old || new) penalty, each step clipped by
+the global gradient norm (optax's rule) and taken by Adam; then it updates
+the adaptive KL coefficient from the last minibatch's KL. GAE, the loss
+and Adam are plain PyTorch, as they are plain XLA in the JAX learner.
+
 `make_ppo_eval` is the JAX `make_ppo_eval`: the mean sparse return of
 `num_games` self-play games, with its env step on B1 too.
 
-Actions are sampled by the Gumbel-max trick from an explicit
-`torch.Generator`; JAX's draws differ, so the tests feed both sides the
-same actions through `sample_fn`.
+Actions are sampled by the Gumbel-max trick and minibatches permuted from
+an explicit `torch.Generator`; JAX's draws differ, so the tests feed both
+sides the same actions through `sample_fn`, the same lanes through
+`pool_idx` and the same permutations through `perm_fn`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -91,6 +100,11 @@ class Rollout(NamedTuple):
     shaped: torch.Tensor  # (T, P, B) int32 per-player shaped reward
     events: torch.Tensor  # (T, P, B) int32 event bitmasks
     pool_idx: Optional[torch.Tensor] = None  # (B,) int64 pool entry of each lane, pool mode
+    logits: Optional[torch.Tensor] = None  # (T, P*B, A) float32, for KL(old || new)
+    # (T, P*B) float32: the summed sparse reward + shaping_factor x the
+    # player's shaped reward
+    reward: Optional[torch.Tensor] = None
+    mask: Optional[torch.Tensor] = None  # (T, P*B) float32, 1 for a sample PPO trains on
 
 
 def gumbel_sample(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -106,9 +120,13 @@ SampleFn = Callable[[torch.Tensor, int], torch.Tensor]  # (logits, step) -> (N,)
 def collect_rollout(spec, net: PPONet, config: PPOConfig,
                     generator: Optional[torch.Generator] = None, device="cuda",
                     sample_fn: Optional[SampleFn] = None, pool: Optional[Layout] = None,
-                    pool_idx: Optional[torch.Tensor] = None) -> Rollout:
+                    pool_idx: Optional[torch.Tensor] = None,
+                    shaping_factor=1.0) -> Rollout:
     """Self-play one episode of `config.horizon` steps in `config.num_envs`
     envs under `net`.
+
+    shaping_factor: a float or a 0-d float32 tensor, the weight of the
+    shaped reward in `Rollout.reward`.
 
     spec: one LayoutSpec, or a list of them for pool mode. In pool mode
     `pool` may replace the stacked specs with a regenerated pool of the same
@@ -151,21 +169,28 @@ def collect_rollout(spec, net: PPONet, config: PPOConfig,
     obs[0] = encode_nhwc(layout, state, T)
     action = torch.empty((T, P * B), dtype=torch.int64, device=device)
     logp = torch.empty((T, P * B), dtype=torch.float32, device=device)
-    value = torch.empty_like(logp)
+    value, reward = torch.empty_like(logp), torch.empty_like(logp)
+    logits_all = torch.empty((T, P * B, net.cfg.num_actions), dtype=torch.float32,
+                             device=device)
     sparse, shaped, events = (
         torch.empty((T, P, B), dtype=torch.int32, device=device) for _ in range(3)
     )
     for t in range(T):
-        logits, value[t] = net(obs[t])
+        logits_all[t], value[t] = net(obs[t])
+        logits = logits_all[t]
         action[t] = sample(logits, t)
         logp[t] = F.log_softmax(logits, -1).gather(1, action[t][:, None])[:, 0]
         act = action[t].to(torch.int32).reshape(P, B)
         state, obs_t, sparse[t], shaped[t], events[t] = env_step(state, act)
+        reward[t] = (sparse[t].sum(0, dtype=torch.int32)[None].float()
+                     + shaping_factor * shaped[t].float()).reshape(P * B)
         if t + 1 < T:  # (P, 26, HW, B) -> (P, B, H, W, 26)
             obs[t + 1].view(P, B, H, W, NUM_LAYERS).copy_(
                 obs_t.view(P, NUM_LAYERS, H, W, B).permute(0, 4, 2, 3, 1)
             )
-    return Rollout(obs, action, logp, value, sparse, shaped, events, pool_idx)
+    mask = torch.ones_like(logp)  # no BC partner yet (ROADMAP A.6)
+    return Rollout(obs, action, logp, value, sparse, shaped, events, pool_idx, logits_all,
+                   reward, mask)
 
 
 def make_ppo_eval(spec, num_games: int = 8, horizon: int = 400, device="cuda"):
@@ -195,3 +220,250 @@ def make_ppo_eval(spec, num_games: int = 8, horizon: int = 400, device="cuda"):
         return total.item() / B
 
     return evaluate
+
+
+class TrainState(NamedTuple):
+    """The learner's state. `train_iteration` updates the net, the optimiser
+    and the generator in place and returns the state with its new counters."""
+
+    net: PPONet
+    opt: torch.optim.Adam
+    generator: torch.Generator  # on the device: actions, pool lanes, permutations
+    env_steps: torch.Tensor  # () float32 total env steps sampled
+    kl_coeff: torch.Tensor  # () float32 adaptive KL coefficient
+
+
+class IterMetrics(NamedTuple):
+    """The JAX `IterMetrics`, field for field, as 0-d float32 tensors."""
+
+    episode_sparse_reward: torch.Tensor  # mean per-episode summed sparse reward
+    episode_shaped_reward: torch.Tensor  # mean per-episode summed shaped reward
+    # mean per-episode mixed reward summed over both agents (rllib's
+    # episode_reward_mean, the metric of the reference's CI thresholds)
+    episode_total_reward: torch.Tensor
+    policy_loss: torch.Tensor
+    vf_loss: torch.Tensor
+    kl: torch.Tensor
+    entropy: torch.Tensor
+    kl_coeff: torch.Tensor
+    reward_shaping_factor: torch.Tensor
+    entropy_coeff: torch.Tensor
+    bc_factor: torch.Tensor  # scheduled BC-partner probability this iteration
+    bc_sample_fraction: torch.Tensor  # fraction of samples masked out as BC
+
+
+def _anneal(start_v, curr_t, end_t, end_v=0.0, start_t=0.0):
+    """Linear anneal from start_v at start_t to end_v at end_t, in float32
+    (reference OvercookedMultiAgent._anneal)."""
+    curr_t = torch.as_tensor(curr_t, dtype=torch.float32)
+    if end_t == 0 or end_t == float("inf"):
+        return torch.full((), start_v, dtype=torch.float32, device=curr_t.device)
+    frac = torch.clamp(1.0 - (curr_t - start_t) / (end_t - start_t), min=0.0)
+    return frac * start_v + (1.0 - frac) * end_v
+
+
+def _bc_factor_at(schedule, t):
+    """Piecewise-linear bc_factor of a ((t, value), ...) schedule, in float32
+    (reference anneal_bc_factor)."""
+    t = torch.as_tensor(t, dtype=torch.float32)
+    factor = torch.full((), schedule[0][1], dtype=torch.float32, device=t.device)
+    for (t0, v0), (t1, v1) in zip(schedule[:-1], schedule[1:]):
+        if t1 == float("inf"):
+            seg = torch.full((), v0, dtype=torch.float32, device=t.device)
+        else:
+            frac = torch.clamp((t - t0) / max(t1 - t0, 1e-9), 0.0, 1.0)
+            seg = (1 - frac) * v0 + frac * v1
+        factor = torch.where(t >= t0, seg, factor)
+    return factor
+
+
+def gae(reward: torch.Tensor, value: torch.Tensor, gamma: float, lmbda: float):
+    """GAE(lambda) over (T, N) with the episode terminal at the horizon (no
+    bootstrap). Returns (advantages, value targets)."""
+    adv = torch.empty_like(value)
+    next_adv = next_value = torch.zeros_like(value[0])
+    for t in range(value.shape[0] - 1, -1, -1):
+        delta = reward[t] + gamma * next_value - value[t]
+        next_adv = adv[t] = delta + gamma * lmbda * next_adv
+        next_value = value[t]
+    return adv, adv + value
+
+
+def standardize(adv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Advantages standardised over the trained samples (population std)."""
+    m_sum = torch.clamp(mask.sum(), min=1.0)
+    mean = (adv * mask).sum() / m_sum
+    std = torch.sqrt(((adv - mean).square() * mask).sum() / m_sum)
+    return (adv - mean) / (std + 1e-8)
+
+
+def loss_fn(net: PPONet, batch, kl_coeff, entropy_coeff, config: PPOConfig):
+    """The PPO loss of one minibatch: clipped surrogate, KL(old || new) from
+    the stored logits, entropy bonus, clipped value loss, all masked means.
+    Returns (total, (policy_loss, vf_loss, kl, entropy))."""
+    obs, action, logp_old, logits_old, value_old, adv, vt, mask = batch
+    logits, value = net(obs)
+    m_sum = torch.clamp(mask.sum(), min=1.0)
+
+    def wmean(x):
+        return (x * mask).sum() / m_sum
+
+    logp_all = F.log_softmax(logits, -1)
+    logp = logp_all.gather(1, action[:, None])[:, 0]
+    ratio = torch.exp(logp - logp_old)
+    surr = torch.minimum(
+        ratio * adv, torch.clamp(ratio, 1 - config.clip_param, 1 + config.clip_param) * adv
+    )
+    policy_loss = -wmean(surr)
+    p_old = F.softmax(logits_old, -1)
+    kl = wmean((p_old * (F.log_softmax(logits_old, -1) - logp_all)).sum(-1))
+    entropy = -wmean((F.softmax(logits, -1) * logp_all).sum(-1))
+    vf_loss1 = (value - vt).square()
+    v_clipped = value_old + torch.clamp(value - value_old, -config.vf_clip_param,
+                                        config.vf_clip_param)
+    vf_loss2 = (v_clipped - vt).square()
+    vf_loss = wmean(torch.maximum(vf_loss1, vf_loss2))
+    total = (policy_loss + kl_coeff * kl + config.vf_loss_coeff * vf_loss
+             - entropy_coeff * entropy)
+    return total, (policy_loss, vf_loss, kl, entropy)
+
+
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax's `clip_by_global_norm`, in place and without a host sync: when
+    the global norm g of `grads` reaches max_norm, each becomes
+    (grad / g) * max_norm; below it they stay as they are. (torch's
+    `clip_grad_norm_` scales by max_norm / (g + 1e-6), always.) Returns g."""
+    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    clip = g_norm >= max_norm
+    torch._foreach_div_(grads, torch.where(clip, g_norm, 1.0))
+    torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
+    return g_norm
+
+
+PhaseFn = Callable[[str, object], None]  # (phase, its output) after each phase
+
+
+def make_ppo(spec, config: PPOConfig, device="cuda", mesh=None):
+    """Build (init_fn, train_iteration) for a layout spec, or for a list of
+    same-shape specs (pool mode: each iteration every lane draws a layout
+    of the pool, the reference's num_mdp=inf).
+
+    init_fn(seed) -> TrainState: the net drawn from a CPU generator seeded
+    `seed` (the same weights on every device), Adam (optax's `adam`: eps
+    outside the square root), and a generator on `device` seeded `seed`.
+
+    train_iteration(ts, pool=None, sample_fn=None, pool_idx=None,
+    perm_fn=None, on_phase=None) -> (ts, IterMetrics). `pool` (pool mode) is
+    a regenerated pool of the same leaf shapes. The hooks replace the
+    generator's draws: `sample_fn` the actions and `pool_idx` the lanes (as
+    in `collect_rollout`), `perm_fn(epoch)` the (n_samples,) permutation of
+    an epoch. `on_phase(name, out)` is called after the "rollout" (the
+    `Rollout`) and after the "advantages" ((advantages, value targets)).
+    After the rollout (whose set-up copies do), nothing in an iteration
+    waits for the card: GAE, the SGD loop and the KL update stay on the
+    device.
+    """
+    if config.use_phi:
+        raise ValueError("use_phi: the potential-based shaping comes with ROADMAP A.5")
+    if any(v for _, v in config.bc_schedule):
+        raise ValueError("a nonzero bc_schedule: the BC partner comes with ROADMAP A.6")
+    if mesh is not None:
+        raise ValueError("a mesh: data parallelism comes with ROADMAP A.9")
+    pool_mode = isinstance(spec, (list, tuple))
+    spec0 = check_pool_shape(list(spec)) if pool_mode else spec
+    if spec0.num_players != 2:
+        raise ValueError("PPO self-play is 2-player")
+    device = torch.device(device)
+    B, T = config.num_envs, config.horizon
+    n_samples = 2 * B * T
+    mb_size = min(2 * config.sgd_minibatch_size, n_samples)
+    n_minibatches = n_samples // mb_size  # the tail of each permutation is dropped
+
+    def init_fn(seed: int) -> TrainState:
+        net = PPONet(config.net, spec0.height, spec0.width,
+                     generator=torch.Generator().manual_seed(seed)).to(device)
+        opt = torch.optim.Adam(net.parameters(), lr=config.lr, betas=(0.9, 0.999), eps=1e-8)
+        return TrainState(
+            net, opt, torch.Generator(device=device).manual_seed(seed),
+            torch.zeros((), dtype=torch.float32, device=device),
+            torch.tensor(config.kl_coeff, dtype=torch.float32, device=device),
+        )
+
+    def train_iteration(ts: TrainState, pool: Optional[Layout] = None,
+                        sample_fn: Optional[SampleFn] = None,
+                        pool_idx: Optional[torch.Tensor] = None,
+                        perm_fn: Optional[Callable[[int], torch.Tensor]] = None,
+                        on_phase: Optional[PhaseFn] = None):
+        shaping_factor = _anneal(config.reward_shaping_factor, ts.env_steps,
+                                 config.reward_shaping_horizon)
+        entropy_coeff = _anneal(config.entropy_coeff_start, ts.env_steps,
+                                config.entropy_coeff_horizon, config.entropy_coeff_end)
+        bc_factor = _bc_factor_at(config.bc_schedule, ts.env_steps)
+        ro = collect_rollout(spec, ts.net, config, ts.generator, device, sample_fn, pool,
+                             pool_idx, shaping_factor)
+        if on_phase:
+            on_phase("rollout", ro)
+        adv, value_targets = gae(ro.reward, ro.value, config.gamma, config.lmbda)
+        adv = standardize(adv, ro.mask)
+        if on_phase:
+            on_phase("advantages", (adv, value_targets))
+
+        def flat(x):  # time-major (T, P*B, ...) -> (n_samples, ...)
+            return x.reshape((n_samples,) + x.shape[2:])
+
+        data = tuple(flat(x) for x in (ro.obs, ro.action, ro.logp, ro.logits, ro.value, adv,
+                                       value_targets, ro.mask))
+        params = list(ts.net.parameters())
+        for epoch in range(config.num_sgd_iter):
+            if perm_fn is None:
+                perm = torch.randperm(n_samples, generator=ts.generator, device=device)
+            else:
+                perm = torch.as_tensor(perm_fn(epoch), device=device)
+            for i in range(n_minibatches):
+                idx = perm[i * mb_size:(i + 1) * mb_size]
+                total, aux = loss_fn(ts.net, tuple(d[idx] for d in data), ts.kl_coeff,
+                                     entropy_coeff, config)
+                ts.opt.zero_grad(set_to_none=True)
+                total.backward()
+                clip_by_global_norm_([p.grad for p in params], config.grad_clip)
+                ts.opt.step()
+        policy_loss, vf_loss, kl, entropy = (a.detach() for a in aux)
+
+        # the adaptive KL coefficient (rllib update_kl), from the last minibatch
+        kl_coeff = torch.where(
+            kl > 2.0 * config.kl_target, ts.kl_coeff * 1.5,
+            torch.where(kl < 0.5 * config.kl_target, ts.kl_coeff * 0.5, ts.kl_coeff),
+        )
+        metrics = IterMetrics(
+            episode_sparse_reward=ro.sparse.sum() / B,
+            episode_shaped_reward=ro.shaped.sum() / B,
+            episode_total_reward=ro.reward.sum() / B,
+            policy_loss=policy_loss,
+            vf_loss=vf_loss,
+            kl=kl,
+            entropy=entropy,
+            kl_coeff=kl_coeff,
+            reward_shaping_factor=shaping_factor,
+            entropy_coeff=entropy_coeff,
+            bc_factor=bc_factor,
+            bc_sample_fraction=(1.0 - ro.mask).mean(),
+        )
+        return ts._replace(env_steps=ts.env_steps + B * T, kl_coeff=kl_coeff), metrics
+
+    return init_fn, train_iteration
+
+
+def train(spec, config: PPOConfig, num_iterations: int, seed: int = 0, log_every: int = 0,
+          device="cuda"):
+    """Convenience loop; returns (final TrainState, list of IterMetrics)."""
+    init_fn, train_iteration = make_ppo(spec, config, device)
+    ts = init_fn(seed)
+    history = []
+    for it in range(num_iterations):
+        ts, m = train_iteration(ts)
+        history.append(m)
+        if log_every and (it + 1) % log_every == 0:
+            print(f"iter {it + 1}: sparse_r={m.episode_sparse_reward.item():.2f} "
+                  f"shaped_r={m.episode_shaped_reward.item():.2f} "
+                  f"kl={m.kl.item():.4f} entropy={m.entropy.item():.3f}")
+    return ts, history

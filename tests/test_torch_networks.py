@@ -52,3 +52,14 @@ def test_ppo_net_defaults_and_init():
     assert float(w.abs().max()) <= limit
     assert all(float(m.bias.detach().abs().max()) == 0.0 for m in net.dense)
     assert net.dense[0].in_features == 25 * 2 * 3  # (H-2) x (W-2) x filters
+
+
+def test_ppo_net_init_draws_from_its_generator():
+    """The init reads only its generator: one seed gives one net, another
+    seed another, and the global RNG is neither read nor advanced."""
+    before = torch.random.get_rng_state()
+    a, b, c = (PPONet(NetConfig(), 4, 5, generator=torch.Generator().manual_seed(s))
+               for s in (3, 3, 4))
+    assert torch.equal(torch.random.get_rng_state(), before)
+    assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    assert not torch.equal(a.convs[0].weight, c.convs[0].weight)
