@@ -46,7 +46,7 @@ Phases, one line each with its seconds:
      bench.py's train-iteration shape (2048 envs x 400 steps, minibatch
      32768 env steps, 8 epochs) on `cramped_room`, its wall, its split into
      rollout, GAE and SGD by CUDA events on a further iteration, and a
-     profiled one; one pool iteration on a regenerated 64-layout pool;
+     profiled one of 40 steps at the same widths; one pool iteration on a regenerated 64-layout pool;
      a small iteration on the card against the CPU learner; the two
      training CLIs in process, into a temporary directory.
 B1's and B3's times are the profiler's device time (a timing whose session
@@ -183,16 +183,16 @@ def main() -> int:
     b2_err = 0
     for name in ("cramped_room", "corridor"):
         lay = from_layout_name(name).layout
-        B, T = 256, 450  # 450 steps at horizon 400 cross an auto-reset
+        B, T = 256, 110  # 110 steps at horizon 100 cross an auto-reset
         state = batch_reset(lay, B, dev)
         acts = torch.from_numpy(
             np.random.RandomState(0).choice(6, size=(T, 2, B), p=PROB).astype(np.int32)
         ).to(dev)
-        got = fused_rollout.fused_rollout_actions(lay, state, acts, horizon=400)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 0, acts, T, 400)
+        got = fused_rollout.fused_rollout_actions(lay, state, acts, horizon=100)
+        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 0, acts, T, 100)
         b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-        got = fused_rollout.fused_rollout_random(lay, state, 7, T, horizon=400)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 7, None, T, 400)
+        got = fused_rollout.fused_rollout_random(lay, state, 7, T, horizon=100)
+        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 7, None, T, 100)
         b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
     # the other player counts the kernel is built for: 1 (old dynamics), 3, 4
     cfg3 = read_layout_config("multiplayer_schelling")
@@ -201,19 +201,19 @@ def main() -> int:
                    build_layout("schelling_3p", cfg3),
                    from_layout_name("multiplayer_schelling")):
         lay, P = spec_p.layout, spec_p.num_players
-        B, T = 250, 110  # a ragged last block; crosses the auto-reset at 100
+        B, T = 250, 60  # a ragged last block; crosses the auto-reset at 50
         state = batch_reset(lay, B, dev)
         acts = torch.from_numpy(
             np.random.RandomState(P).choice(6, size=(T, P, B), p=PROB).astype(np.int32)
         ).to(dev)
-        got = fused_rollout.fused_rollout_actions(lay, state, acts, horizon=100)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 0, acts, T, 100)
+        got = fused_rollout.fused_rollout_actions(lay, state, acts, horizon=50)
+        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 0, acts, T, 50)
         b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-        got = fused_rollout.fused_rollout_random(lay, state, 3, T, horizon=100)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 3, None, T, 100)
+        got = fused_rollout.fused_rollout_random(lay, state, 3, T, horizon=50)
+        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 3, None, T, 50)
         b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
     log(f"[3 B2 parity] {time.perf_counter() - t0:.2f}s cramped_room+corridor B=256 "
-        f"T=450, 1/3/4-player layouts B=250 T=110, actions+murmur3 max_abs_err={b2_err}")
+        f"T=110, 1/3/4-player layouts B=250 T=60, actions+murmur3 max_abs_err={b2_err}")
     if b2_err:
         raise SystemExit("B2 kernel disagrees with its plain version")
 
@@ -231,9 +231,10 @@ def main() -> int:
     b1_err = 0
     cramped = from_layout_name("cramped_room").layout
     for lay, B, T, horizon, reset, offset in (
-            (cramped, 256, 450, 400, 400, False),
-            (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 450, 400,
-             400, False),
+            # urgency from step 80 of 120, an auto-reset at 100
+            (cramped, 256, 110, 120, 100, False),
+            (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 110, 120,
+             100, False),
             (cramped, 2048, 150, 400, 400, False),  # the main path's shape
             (cramped, 8, 150, 80, 60, False),  # the eval's 8 envs, two resets
             (cramped, 37, 60, 400, 400, False),  # a ragged last tile
@@ -262,7 +263,7 @@ def main() -> int:
             sk, sp = k[0], p[0]
         b1_err = max(b1_err, int(err))
     log(f"[4 B1 parity] {time.perf_counter() - t0:.2f}s cramped_room,coordination_ring(old) "
-        f"B=256 T=450, cramped_room B=2048 T=150, B=8 T=150, B=37 T=60 and offset views "
+        f"B=256 T=110, cramped_room B=2048 T=150, B=8 T=150, B=37 T=60 and offset views "
         f"B=2048 T=20, corridor B=250 T=120, 16x8 B=256 T=120 "
         f"(tile {fused_train.tile_plan(128, 256).envs} envs), max_abs_err={b1_err}")
     if b1_err:
@@ -488,20 +489,20 @@ def main() -> int:
              ("3 players", *make_pool(16, 3, (7, 5), num_players=3)),
              ("4 players", *make_pool(16, 4, (7, 5), num_players=4))]
     for k, (_, spec0, specs) in enumerate(cases):
-        B, T, P = 250, 110, spec0.num_players  # a ragged last block; resets at 100
+        B, T, P = 250, 60, spec0.num_players  # a ragged last block; resets at 50
         lay = lanes_of(specs, B, k)
         state = batch_reset(lay, B, dev)
         pacts = torch.from_numpy(
             np.random.RandomState(k).choice(6, size=(T, P, B), p=PROB).astype(np.int32)
         ).to(dev)
-        got = fused_pool.fused_pool_rollout_actions(spec0, lay, state, pacts, horizon=100)
-        want = fused_pool.plain_pool_rollout(lay, state, 0, pacts, T, 100)
+        got = fused_pool.fused_pool_rollout_actions(spec0, lay, state, pacts, horizon=50)
+        want = fused_pool.plain_pool_rollout(lay, state, 0, pacts, T, 50)
         b4_err = max(b4_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-        got = fused_pool.fused_pool_rollout_random(spec0, lay, state, 3, T, horizon=100)
-        want = fused_pool.plain_pool_rollout(lay, state, 3, None, T, 100)
+        got = fused_pool.fused_pool_rollout_random(spec0, lay, state, 3, T, horizon=50)
+        want = fused_pool.plain_pool_rollout(lay, state, 3, None, T, 50)
         b4_err = max(b4_err, max_err((*got[0], got[1]), (*want[0], want[1])))
     log(f"[7 B4 parity] {time.perf_counter() - t0:.2f}s 64-layout pool B=16384 T={T_CMP} "
-        f"murmur3 (return={b4_cmp_return}); B=250 T=110 actions+murmur3: "
+        f"murmur3 (return={b4_cmp_return}); B=250 T=60 actions+murmur3: "
         f"{', '.join(c[0] for c in cases)}; max_abs_err={b4_err}")
     if b4_err:
         raise SystemExit("B4 kernel disagrees with its plain version")
@@ -512,9 +513,9 @@ def main() -> int:
     for k, (label, (spec0, specs), B, T) in enumerate((
             ("5x4 B=2048", (spec_pool, specs64), 2048, 150),  # the main path's shape
             ("5x4 B=37", (spec_pool, specs64), 37, 60),  # fewer envs than a block
-            ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 150),
-            ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 150),
-            ("mixed B=256", make_pool(4, 5, cfgs=MIXED), 256, 150),
+            ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 110),
+            ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 110),
+            ("mixed B=256", make_pool(4, 5, cfgs=MIXED), 256, 110),
             ("16x8 B=250", make_pool(16, 2, (16, 8)), 250, 120))):  # HW = 128: E = 16
         lay = lanes_of(specs, B, 10 + k)
         pool = fused_pool.pool_data(spec0, lay, dev)
@@ -536,7 +537,7 @@ def main() -> int:
             mixed_rows = pool.table_rows.shape[0]
         b3_err = max(b3_err, int(err))
     log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=150 and B=37 T=60, "
-        f"7x5 B=256 T=150, old dynamics B=256 T=150, mixed tables B=256 T=150 "
+        f"7x5 B=256 T=110, old dynamics B=256 T=110, mixed tables B=256 T=110 "
         f"({mixed_rows} distinct rows, shaped={mixed_shaped} sparse={mixed_sparse}), 16x8 "
         f"B=250 T=120 (tile {fused_train.tile_plan(128, 250, pool=True).envs} envs), "
         f"max_abs_err={b3_err}")
@@ -769,23 +770,26 @@ def main() -> int:
         f"{steps_after:.0f}; metrics " + json.dumps({k: round(v, 6) for k, v in
                                                      metrics.items()}))
 
-    # and on the device: a profiled iteration, device time by kernel against
-    # its wall. The profiler may drop records (phase 9's note above), so the
-    # line says how many of the iteration's 400 B1 launches it recorded. Only
-    # device activity: an iteration's host ops would take the profiler tens
-    # of seconds to sum
+    # and on the device: device time by kernel against the wall, over a
+    # profiled iteration at the same widths but 40 steps (2 minibatches of
+    # 65,536 samples an epoch: 16 Adam steps); the profiler takes 15-20 s
+    # to sum a whole iteration's records. It may drop some (phase 9's note
+    # above), so the line says how many of the 40 B1 launches it recorded
     t0 = time.perf_counter()
+    cfg_tr = PPOConfig(num_envs=2048, horizon=40, sgd_minibatch_size=32768)
+    init_tr, train_tr = make_ppo(spec, cfg_tr, dev)
+    ts_tr, _ = train_tr(init_tr(0))  # its GAE and gathers at T = 40, once untraced
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        (ts, _), t_traced = synced(lambda: train_it(ts))
+        _, t_traced = synced(lambda: train_tr(ts_tr))
     by_kernel = sorted(((dev_time(e), e.count, e.key) for e in prof.key_averages()
                         if dev_time(e) > 0), reverse=True)
     busy_us = sum(us for us, _, _ in by_kernel)
     b1_seen = sum(n for _, n, k in by_kernel if "train_step_kernel<false>" in k)
     top = "; ".join(f"{k[:48]} x{n} {us / 1e3:.1f}ms" for us, n, k in by_kernel[:8])
-    log(f"[12a learner trace] {time.perf_counter() - t0:.2f}s one iteration wall "
-        f"{t_traced * 1e3:.1f}ms device busy "
+    log(f"[12a learner trace] {time.perf_counter() - t0:.2f}s one iteration 2048x40, 16 Adam "
+        f"steps of 65536 samples: wall {t_traced * 1e3:.1f}ms device busy "
         f"{busy_us / 1e3:.1f}ms (idle {1 - busy_us / 1e6 / t_traced:.1%}), B1 records "
-        f"{b1_seen}/400; top: {top}")
+        f"{b1_seen}/40; top: {top}")
 
     t0 = time.perf_counter()
     init_pool, train_pool = make_ppo(specs64, cfg_it, dev)
