@@ -23,6 +23,17 @@ from overcooked_ai_tpu_torch.training import checkpoint, ppo
 SMALL = dict(num_envs=2, horizon=20, num_sgd_iter=2, sgd_minibatch_size=10)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The CPU learner runs many small ops, which intra-op threads do not
+    speed up; beside pytest-xdist's other workers they oversubscribe the
+    cores (the learning check took 6x its lone time on 8 threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_restored_checkpoint_continues_bit_for_bit(tmp_path):
     """Save after one iteration; the next iteration from the restored state
     (net, Adam, generator, counters) equals the one of a run that never

@@ -45,6 +45,17 @@ EXACT = ("episode_sparse_reward", "episode_shaped_reward", "kl_coeff", "reward_s
          "entropy_coeff", "bc_factor", "bc_sample_fraction")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The CPU learner runs many small ops, which intra-op threads do not
+    speed up; beside pytest-xdist's other workers they oversubscribe the
+    cores (the learning check took 6x its lone time on 8 threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_hooks(jts, n_pool=None):
     """sample_fn, perm_fn and (pool mode) pool_idx that replay the draws of
     the JAX `train_iteration` from state `jts`."""
