@@ -48,7 +48,18 @@ Phases, one line each with its seconds:
      rollout, GAE and SGD by CUDA events on a further iteration, and a
      profiled one of 40 steps at the same widths; one pool iteration on a regenerated 64-layout pool;
      a small iteration on the card against the CPU learner; the two
-     training CLIs in process, into a temporary directory.
+     training CLIs in process, into a temporary directory;
+ 13. agent-pair evaluation: `run_agent_pair` greedy vs greedy at 1024 games
+     x 400 steps on `cramped_room` and `counter_circuit_o_1order` (each step
+     one B1 launch), its wall, games/s and B1 launches, the first 8 games
+     held bit for bit against the same games on the CPU with the card's
+     draws, and a traced 50-step run's device split; PPO (`PPONet` at
+     NetConfig() widths, random weights from a seed, saved as a checkpoint
+     and loaded through `build_agent("ppo:<dir>")`) vs greedy and
+     Boltzmann vs stay; the reference trajectory format and
+     `check_trajectories` on 4 games; the two eval CLIs in process.
+Phase 5 also times `train_rollout_random` (B1 under uniform-random play) at
+the JAX bench.py's 16384 envs x 4000 steps.
 B1's and B3's times are the profiler's device time (a timing whose session
 records no launch of its kernel is made again, and fails the run after four
 sessions with none); B2's and B4's are CUDA events' around one launch of
@@ -109,7 +120,16 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from overcooked_ai_tpu_torch.cli import train_ppo, train_ppo_from_params
+    from overcooked_ai_tpu_torch.agents import agents as agents_mod
+    from overcooked_ai_tpu_torch.agents.evaluation import (
+        check_trajectories,
+        greedy_agent_fn,
+        run_agent_pair,
+        stateless,
+        trajectories_to_reference_format,
+    )
+    from overcooked_ai_tpu_torch.agents.loading import build_agent
+    from overcooked_ai_tpu_torch.cli import eval_matrix, eval_pool, train_ppo, train_ppo_from_params
     from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP, TERRAIN_POT
     from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS
     from overcooked_ai_tpu_torch.core.env import batch_reset, rollout_random
@@ -126,6 +146,9 @@ def main() -> int:
     )
     from overcooked_ai_tpu_torch.core.state import State
     from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
+    from overcooked_ai_tpu_torch.planning.greedy_tables import build_greedy_tables
+    from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
+    from overcooked_ai_tpu_torch.training.checkpoint import save_checkpoint
     from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
     from overcooked_ai_tpu_torch.training.ppo import (
         PPOConfig,
@@ -235,7 +258,7 @@ def main() -> int:
             (cramped, 256, 110, 120, 100, False),
             (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 110, 120,
              100, False),
-            (cramped, 2048, 150, 400, 400, False),  # the main path's shape
+            (cramped, 2048, 100, 400, 400, False),  # the main path's shape
             (cramped, 8, 150, 80, 60, False),  # the eval's 8 envs, two resets
             (cramped, 37, 60, 400, 400, False),  # a ragged last tile
             (cramped, 2048, 20, 400, 400, True),  # views at an offset: 4-byte staging copies
@@ -263,7 +286,7 @@ def main() -> int:
             sk, sp = k[0], p[0]
         b1_err = max(b1_err, int(err))
     log(f"[4 B1 parity] {time.perf_counter() - t0:.2f}s cramped_room,coordination_ring(old) "
-        f"B=256 T=110, cramped_room B=2048 T=150, B=8 T=150, B=37 T=60 and offset views "
+        f"B=256 T=110, cramped_room B=2048 T=100, B=8 T=150, B=37 T=60 and offset views "
         f"B=2048 T=20, corridor B=250 T=120, 16x8 B=256 T=120 "
         f"(tile {fused_train.tile_plan(128, 256).envs} envs), max_abs_err={b1_err}")
     if b1_err:
@@ -363,8 +386,8 @@ def main() -> int:
     log(f"[5 policy trace] 2048x32 wall {t_prof * 1e3:.1f}ms device busy {busy_us / 1e3:.1f}ms "
         f"(idle {1 - busy_us / 1e6 / t_prof:.1%}), B1 {b1_us / 1e3:.2f}ms; top: {top}")
 
-    # B1 time per launch at the main path's two shapes, the rollout's 2048
-    # envs and the eval's 8, device time from the profiler; the plain
+    # B1 time per launch at the main path's shapes, the rollout's 2048 envs,
+    # the eval's 8 and the agent pairs' 1024, device time from the profiler; the plain
     # version's wall per step; the byte bound: the state in and out, the
     # actions, the obs, the rewards and events
     HW, P = spec.height * spec.width, 2
@@ -372,7 +395,7 @@ def main() -> int:
     env_bytes = 2 * state_bytes + 4 * P + NUM_LAYERS * P * HW + 12 * P
     lay_dev = layout_on(lay, dev)
     b1_time = {}
-    for B in (2048, 8):
+    for B in (2048, 8, 1024):
         state = batch_reset(lay, B, dev)
         act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
         n = 50
@@ -384,7 +407,9 @@ def main() -> int:
     b1_ms, b1_plain_ms, b1_bound_ms = b1_time[2048]
     log(f"[5 B1 timing] B=2048 {b1_ms:.4f} ms/launch (profiler) plain {b1_plain_ms:.3f} ms "
         f"bound {b1_bound_ms:.5f} ms ({2048 * env_bytes} bytes); B=8 {b1_time[8][0]:.4f} "
-        f"ms/launch plain {b1_time[8][1]:.3f} ms bound {b1_time[8][2]:.7f} ms; "
+        f"ms/launch plain {b1_time[8][1]:.3f} ms bound {b1_time[8][2]:.7f} ms; B=1024 "
+        f"{b1_time[1024][0]:.4f} ms/launch plain {b1_time[1024][1]:.3f} ms bound "
+        f"{b1_time[1024][2]:.6f} ms; "
         f"tile {fused_train.tile_plan(HW, 2048)}")
 
     # the tile sweep: ms per launch for each envs x threads a block (128
@@ -402,6 +427,24 @@ def main() -> int:
                         fused_train.launch_kernel(lay, state, act, 400, 400, plan)
                         for _ in range(n)])
     log("[5 B1 tile sweep] ms/launch " + json.dumps({k: round(v, 5) for k, v in sweep.items()}))
+
+    # the train path's env throughput: train_rollout_random (one B1 launch a
+    # step, uniform-random actions, totals on the card) at the JAX bench.py's
+    # BATCH x NUM_STEPS_TRAIN, after a short warm-up
+    B, T = 16384, 4000
+    state = batch_reset(lay, B, dev)
+    fused_train.train_rollout_random(lay, state, 20, generator=gen)
+    fused_train.launches = 0
+    (final, totals), t_trr = synced(lambda: fused_train.train_rollout_random(
+        lay, state, T, generator=gen))
+    trr_launches = fused_train.launches
+    totals = {k: v.tolist() for k, v in totals.items()}
+    if trr_launches != T or not (totals["sparse"] > 0 and totals["obs_checksum"] > 0
+                                 and bool(final.t.eq(T % 400).all())):
+        raise SystemExit(f"train_rollout_random: {trr_launches} B1 launches, totals {totals}")
+    log(f"[5 train_rollout_random] {B}x{T}: wall {t_trr:.3f}s = {B * T / t_trr:.0f} env-steps/s "
+        f"on {smi}; B1 launches={trr_launches}; sparse={totals['sparse']} "
+        f"shaped={totals['shaped']} obs_checksum={totals['obs_checksum']}")
 
     # ---- 6. env throughput on B2: the main path's run, then the kernel held
     # against its plain version at the same 16384 envs over 450 steps (one
@@ -511,7 +554,7 @@ def main() -> int:
     t0 = time.perf_counter()
     b3_err = mixed_rows = mixed_sparse = mixed_shaped = 0
     for k, (label, (spec0, specs), B, T) in enumerate((
-            ("5x4 B=2048", (spec_pool, specs64), 2048, 150),  # the main path's shape
+            ("5x4 B=2048", (spec_pool, specs64), 2048, 100),  # the main path's shape
             ("5x4 B=37", (spec_pool, specs64), 37, 60),  # fewer envs than a block
             ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 110),
             ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 110),
@@ -536,7 +579,7 @@ def main() -> int:
         if label.startswith("mixed"):
             mixed_rows = pool.table_rows.shape[0]
         b3_err = max(b3_err, int(err))
-    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=150 and B=37 T=60, "
+    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=100 and B=37 T=60, "
         f"7x5 B=256 T=110, old dynamics B=256 T=110, mixed tables B=256 T=110 "
         f"({mixed_rows} distinct rows, shaped={mixed_shaped} sparse={mixed_sparse}), 16x8 "
         f"B=250 T=120 (tile {fused_train.tile_plan(128, 250, pool=True).envs} envs), "
@@ -872,6 +915,177 @@ def main() -> int:
     if (cli_latest, cli_iters, len(cli_eval), pool_latest) != (3, [1, 2, 3], 1, 1):
         raise SystemExit("the training CLIs did not train, checkpoint, resume and log")
 
+    # ---- 13. agent-pair evaluation: greedy vs greedy at 1024 games x 400
+    # steps on two layouts (each step one B1 launch); the first 8 games held
+    # bit for bit against the same games on the CPU, with the card's draws
+    t13 = time.perf_counter()
+
+    class Recorded:
+        """The card's draws (a torch.Generator's), kept for the CPU's replay."""
+
+        def __init__(self, inner):
+            self.inner, self.log = inner, {}
+
+        def at(self, t, player):
+            return agents_mod.StepDraws(self, t, player)
+
+        def uniform(self, t, player, name):
+            u = self.log[(t, player, name)] = self.inner.uniform(t, player, name)
+            return u
+
+        def gumbel(self, t, player, name, shape):
+            g = self.log[(t, player, name)] = self.inner.gumbel(t, player, name, shape)
+            return g
+
+    class Replayed(Recorded):
+        """The first `n` games' draws of a recorded run, on the CPU."""
+
+        def __init__(self, log, n):
+            self.log, self.n = log, n
+
+        def uniform(self, t, player, name):
+            return self.log[(t, player, name)][..., :self.n].cpu()
+
+        def gumbel(self, t, player, name, shape):
+            return self.log[(t, player, name)][..., :self.n].cpu()
+
+    def greedy_pair(spec_g, device):
+        agent = greedy_agent_fn(agents_mod.make_greedy_human_model(
+            spec_g, build_greedy_tables(spec_g, device=device)))
+        return [agent, agent]
+
+    G, T13, N_CPU = 1024, 400, 8
+    pair_lines, pair_err, greedy_traj = [], 0, None
+    for name in ("cramped_room", "counter_circuit_o_1order"):
+        spec_g = from_layout_name(name)
+        pair = greedy_pair(spec_g, dev)
+        run_agent_pair(spec_g, pair, num_games=G, horizon=8, device=dev)  # warm-up
+        draws = Recorded(agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(13), G))
+        reset_counts()
+        traj, t_pair = synced(lambda: run_agent_pair(spec_g, pair, num_games=G, horizon=T13,
+                                                     device=dev, draws=draws))
+        pair_counts = counts()
+        if pair_counts != (T13, 0, 0, 0):
+            raise SystemExit(f"run_agent_pair launched B1/B2/B3/B4 {pair_counts} times, want "
+                             f"B1 {T13} times and nothing else")
+        cpu_traj = run_agent_pair(spec_g, greedy_pair(spec_g, "cpu"), num_games=N_CPU,
+                                  horizon=T13, device="cpu", draws=Replayed(draws.log, N_CPU))
+        err = max_err([torch.from_numpy(np.ascontiguousarray(x[..., :N_CPU])) for x in
+                       (*traj["state"], traj["actions"], traj["sparse"], traj["shaped"],
+                        traj["events"])],
+                      [torch.from_numpy(x) for x in (*cpu_traj["state"], cpu_traj["actions"],
+                                                     cpu_traj["sparse"], cpu_traj["shaped"],
+                                                     cpu_traj["events"])])
+        pair_err = max(pair_err, err)
+        returns = traj["sparse"].sum(axis=(0, 1))
+        pair_lines.append(f"{name} {G}x{T13} wall {t_pair:.3f}s = {G / t_pair:.1f} games/s = "
+                          f"{G * T13 / t_pair:.0f} env-steps/s, B1 launches={pair_counts[0]}, "
+                          f"mean return {returns.mean():.2f}, card vs CPU (first {N_CPU} games) "
+                          f"max_abs_err={err}")
+        if name == "cramped_room":
+            greedy_traj, spec_cr = traj, spec_g
+            if returns.mean() <= 0:
+                raise SystemExit("the greedy pair delivered nothing on cramped_room")
+    log(f"[13a agent pairs] {time.perf_counter() - t13:.2f}s greedy+greedy: "
+        + "; ".join(pair_lines))
+    if pair_err:
+        raise SystemExit("run_agent_pair on the card disagrees with the CPU")
+
+    # where a step's time goes: a traced 50-step greedy pair at 1024 games
+    pair = greedy_pair(spec_cr, dev)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, t_traced = synced(lambda: run_agent_pair(spec_cr, pair, num_games=G, horizon=50,
+                                                    device=dev))
+    by_kernel = sorted(((dev_time(e), e.key) for e in prof.key_averages() if dev_time(e) > 0),
+                       reverse=True)
+    busy_us = sum(us for us, _ in by_kernel)
+    b1_us = sum(us for us, k in by_kernel if "train_step_kernel<false>" in k)
+    copy_us = sum(us for us, k in by_kernel if "Memcpy" in k)
+    top = "; ".join(f"{k[:40]} {us / 1e3:.2f}ms" for us, k in by_kernel[:4])
+    # the host wall without the agents' work: a stay pair, B1 and the loop
+    stay = stateless(agents_mod.stay_agent)
+    _, t_stay = synced(lambda: run_agent_pair(spec_cr, [stay, stay], num_games=G, horizon=T13,
+                                              device=dev))
+    log(f"[13a pair trace] cramped_room {G}x50 wall {t_traced * 1e3:.1f}ms device busy "
+        f"{busy_us / 1e3:.1f}ms (idle {1 - busy_us / 1e6 / t_traced:.1%}): B1 "
+        f"{b1_us / 1e3:.2f}ms, copies to the host {copy_us / 1e3:.2f}ms, the agents' ops "
+        f"{(busy_us - b1_us - copy_us) / 1e3:.2f}ms; top: {top}; stay+stay {G}x{T13} wall "
+        f"{t_stay:.3f}s (B1, the loop and the copy, without the agents)")
+
+    # PPO (full-width net, weights from a seed, through a checkpoint) vs
+    # greedy, and Boltzmann vs stay
+    t0 = time.perf_counter()
+    tables_cr = build_motion_tables(spec_cr.layout.terrain)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ppo")
+        cfg_ck = PPOConfig(num_envs=2)
+        init_ck, _ = make_ppo(spec_cr, cfg_ck, dev)
+        save_checkpoint(ckpt, init_ck(9), cfg_ck, step=1, extra={"use_lstm": False})
+        ppo = build_agent(f"ppo:{ckpt}", spec_cr, tables_cr, dev)
+        greedy = build_agent("greedy", spec_cr, tables_cr, dev)
+        reset_counts()
+        traj_pg, t_pg = synced(lambda: run_agent_pair(spec_cr, [ppo, greedy], num_games=G,
+                                                      horizon=T13, seed=1, device=dev))
+        pg_counts = counts()
+        # Boltzmann vs stay, its first games held against the CPU's with the
+        # card's Gumbel draws (the goal and low-level argmaxes)
+        def boltzmann_pair(device):
+            return [build_agent(k, spec_cr, tables_cr, device) for k in ("boltzmann", "stay")]
+
+        pair = boltzmann_pair(dev)
+        draws = Recorded(agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(2), G))
+        traj_bs, t_bs = synced(lambda: run_agent_pair(spec_cr, pair, num_games=G, horizon=T13,
+                                                      device=dev, draws=draws))
+        cpu_bs = run_agent_pair(spec_cr, boltzmann_pair("cpu"), num_games=N_CPU, horizon=T13,
+                                device="cpu", draws=Replayed(draws.log, N_CPU))
+        bs_err = max_err([torch.from_numpy(np.ascontiguousarray(x[..., :N_CPU]))
+                          for x in (*traj_bs["state"], traj_bs["actions"], traj_bs["sparse"],
+                                    traj_bs["shaped"], traj_bs["events"])],
+                         [torch.from_numpy(x) for x in (*cpu_bs["state"], cpu_bs["actions"],
+                                                        cpu_bs["sparse"], cpu_bs["shaped"],
+                                                        cpu_bs["events"])])
+        pair_err = max(pair_err, bs_err)
+        del draws
+        log(f"[13b ppo, boltzmann] {time.perf_counter() - t0:.2f}s ppo+greedy {G}x{T13} wall "
+            f"{t_pg:.3f}s = {G / t_pg:.1f} games/s, B1 launches={pg_counts[0]}, mean return "
+            f"{traj_pg['sparse'].sum(axis=(0, 1)).mean():.2f}; boltzmann+stay {G}x{T13} wall "
+            f"{t_bs:.3f}s = {G / t_bs:.1f} games/s, mean return "
+            f"{traj_bs['sparse'].sum(axis=(0, 1)).mean():.2f}, card vs CPU (first {N_CPU} "
+            f"games) max_abs_err={bs_err}")
+        if pg_counts != (T13, 0, 0, 0) or not all(
+                ((t["actions"] >= 0) & (t["actions"] < 6)).all() for t in (traj_pg, traj_bs)):
+            raise SystemExit("the PPO or Boltzmann pair is malformed")
+        if bs_err:
+            raise SystemExit("the Boltzmann pair on the card disagrees with the CPU")
+
+        # the reference format and the replay check on 4 greedy games
+        t0 = time.perf_counter()
+        four = {k: v[..., :4] for k, v in greedy_traj.items() if k != "state"}
+        four["state"] = State(*(x[..., :4] for x in greedy_traj["state"]))
+        ref = trajectories_to_reference_format(spec_cr, four, horizon=T13)
+        check_trajectories(ref, spec_cr, device=dev)
+        log(f"[13c trajectories] {time.perf_counter() - t0:.2f}s reference format of 4 games x "
+            f"{T13} steps, returns {ref['ep_returns']}; check_trajectories passed (one B1 launch "
+            f"of {4 * (T13 - 1)} envs)")
+
+        # the two eval CLIs in process, into the temporary directory
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            matrix = eval_matrix.main(["--device", "cuda", "--layouts", "cramped_room",
+                                       "--agents", "greedy", f"ppo:{ckpt}", "--games", "2",
+                                       "--horizon", "50", "--out",
+                                       os.path.join(tmp, "matrix.json")])
+            pool_summary = eval_pool.main(["--device", "cuda", "--ckpt", ckpt, "--pool-size", "4",
+                                           "--games", "2", "--horizon", "50", "--out",
+                                           os.path.join(tmp, "pool.json")])
+        log(f"[13d eval CLIs] {time.perf_counter() - t0:.2f}s eval_matrix (greedy, ppo; 2 "
+            f"games x 50 steps) {len(matrix)} pairs; eval_pool (4 layouts, 2 games x 50 steps) "
+            + json.dumps(pool_summary["results"]))
+        if len(matrix) != 4 or len(pool_summary["results"]) != 4:
+            raise SystemExit("the eval CLIs did not evaluate every pair")
+    log(f"[13 agent-pair evaluation] {time.perf_counter() - t13:.2f}s")
+
     table = {"kernels": [
         {"name": "fused_train_step (B1)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_train.cu",
@@ -879,6 +1093,9 @@ def main() -> int:
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_bound_ms, "bound_by": "bytes", "library_ms": None,
          "collect_launches": b1_collect, "eval_launches": b1_launches - b1_collect,
+         "agent_pair_launches": pair_counts[0], "agent_pair_ms": b1_time[1024][0],
+         "agent_pair_plain_ms": b1_time[1024][1], "agent_pair_bound_ms": b1_time[1024][2],
+         "train_rollout_random_launches": trr_launches,
          "eval_ms": b1_time[8][0],
          "eval_plain_ms": b1_time[8][1], "eval_bound_ms": b1_time[8][2],
          "tile_envs": fused_train.TILE_ENVS, "block_threads": fused_train.BLOCK_THREADS,

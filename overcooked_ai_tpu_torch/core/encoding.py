@@ -26,6 +26,7 @@ B); the terrain layers 10-15 and the pot mask are then the lane's own.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from overcooked_ai_tpu_torch.core.constants import (
@@ -41,7 +42,7 @@ from overcooked_ai_tpu_torch.core.constants import (
     TERRAIN_TOMATO_DISP,
 )
 from overcooked_ai_tpu_torch.core.layout import Layout, per_lane
-from overcooked_ai_tpu_torch.core.state import State
+from overcooked_ai_tpu_torch.core.state import State, to_torch
 from overcooked_ai_tpu_torch.core.step import slot_counts, table_lookup
 
 NUM_LAYERS = 26
@@ -149,3 +150,17 @@ def encode_nhwc(layout: Layout, state: State, horizon: int = 400) -> torch.Tenso
     enc = lossless_encode(layout, state, horizon, torch.int8)  # (P, 26, H, W, B)
     P, C, H, W, B = enc.shape
     return enc.permute(0, 4, 2, 3, 1).reshape(P * B, H, W, C)
+
+
+def lossless_encode_ref_format(layout: Layout, state: State, horizon: int = 400):
+    """A single env's encoding in the reference's format: a tuple of one
+    (W, H, 26) int32 numpy array per player, indexed [x][y]."""
+    batched = State(*(x[..., None] for x in to_torch(state, "cpu")))
+    enc = lossless_encode(layout, batched, horizon)[..., 0]  # (P, 26, H, W)
+    return tuple(np.ascontiguousarray(e.permute(2, 1, 0).numpy()) for e in enc)
+
+
+def get_lossless_encoding_shape(layout: Layout):
+    """(W, H, 26): the reference's shape convention."""
+    h, w = layout.terrain.shape[:2]
+    return (w, h, NUM_LAYERS)

@@ -19,6 +19,7 @@ the JAX package's data directory: a file read, not an import.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import json
 import os
@@ -306,3 +307,13 @@ def from_layout_name(name: str, **params_to_overwrite) -> LayoutSpec:
 
 def available_layouts():
     return sorted(f[:-5] for f in os.listdir(LAYOUT_DIR) if f.endswith(".json"))
+
+
+def convert_reference_layout_text(text: str) -> dict:
+    """Parse a reference `.layout` file (a Python literal) into a dict. The
+    one non-literal in the reference corpus, `float('inf')`
+    (tutorial_3.layout), becomes an infinite float."""
+    try:
+        return ast.literal_eval(text)
+    except ValueError:
+        return ast.literal_eval(text.replace("float('inf')", "1e999"))

@@ -26,6 +26,7 @@ from overcooked_ai_tpu_torch.core.constants import (
     OBJ_NAME_TO_CODE,
     OBJ_NONE,
     OBJ_SOUP,
+    TERRAIN_CODE_TO_CHAR,
     TUPLE_TO_DIRECTION,
 )
 
@@ -203,3 +204,83 @@ def state_from_dict(state_dict: dict, spec) -> State:
             st.soup_ing[y, x] = _slots_from_ingredient_dicts(o["_ingredients"])
             st.soup_tick[y, x] = int(o.get("cooking_tick", -1))
     return st._replace(t=np.asarray(state_dict.get("timestep", 0), np.int32))
+
+
+def canonical_state_dict(d: dict) -> dict:
+    """A reference-format state dict in a canonical form for comparison:
+    mappings with sorted keys, tuples as lists, numpy scalars as Python
+    numbers, and the objects sorted by position (the reference emits them
+    in dict insertion order, which depends on the history)."""
+
+    def canon(v):
+        if isinstance(v, dict):
+            return {k: canon(x) for k, x in sorted(v.items())}
+        if isinstance(v, (list, tuple)):
+            return [canon(x) for x in v]
+        if isinstance(v, np.generic):
+            return v.item()
+        return v
+
+    out = canon(d)
+    out["objects"] = sorted(out["objects"], key=lambda o: tuple(o["position"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ASCII debugging surface (reference state_string, overcooked_mdp.py:2314)
+# ---------------------------------------------------------------------------
+
+_DIR_CHARS = {0: "↑", 1: "↓", 2: "→", 3: "←"}  # N S E W
+_ING_CHARS = {1: "ø", 2: "†"}  # onion, tomato (Recipe.STR_REP)
+
+
+def _soup_str(slots, tick, cook_time) -> str:
+    """Reference SoupState.__str__: '{', one char per ingredient (onions
+    before tomatoes), then the cooking tick while cooking or a check mark
+    when ready."""
+    slots = np.asarray(slots)
+    res = "{" + _ING_CHARS[1] * int(np.sum(slots == 1)) + _ING_CHARS[2] * int(np.sum(slots == 2))
+    tick = int(tick)
+    if 0 <= tick < cook_time:
+        res += str(tick)
+    elif tick >= cook_time:
+        res += "✓"
+    return res
+
+
+def state_string(spec, state: State) -> str:
+    """ASCII rendering of a single env's state over its terrain (reference
+    `OvercookedGridworld.state_string`): cells padded to 7 chars; a player
+    as an orientation arrow and its index, then its held object's first
+    letter or soup string; counter and pot contents inline; the bonus
+    orders appended."""
+    state = to_numpy(state)
+    terrain = np.asarray(spec.layout.terrain)
+    players_at = {(int(x), int(y)): i for i, (x, y) in enumerate(state.pos)}
+    out = []
+    for y in range(terrain.shape[0]):
+        for x in range(terrain.shape[1]):
+            if (x, y) in players_at:
+                i = players_at[(x, y)]
+                cell = _DIR_CHARS[int(state.orient[i])] + str(i)
+                held = int(state.held[i])
+                if held == OBJ_SOUP:
+                    slots = state.held_soup[i]
+                    cell += _soup_str(slots, state.held_soup_tick[i],
+                                      spec.cook_time_of_slots(slots))
+                elif held != OBJ_NONE:
+                    cell += OBJ_CODE_TO_NAME[held][:1]
+            else:
+                cell = TERRAIN_CODE_TO_CHAR[int(terrain[y, x])]
+                obj = int(state.obj[y, x])
+                if obj == OBJ_SOUP:
+                    slots = state.soup_ing[y, x]
+                    cell += _soup_str(slots, state.soup_tick[y, x], spec.cook_time_of_slots(slots))
+                elif obj != OBJ_NONE:
+                    cell += OBJ_CODE_TO_NAME[obj][:1]
+            out.append(cell + " " * (7 - len(cell)) + " ")
+        out.append("\n\n")
+    s = "".join(out)
+    if spec.sorted_bonus_orders:
+        s += f"Bonus orders: {spec.sorted_bonus_orders}\n"
+    return s

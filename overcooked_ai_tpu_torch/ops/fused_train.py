@@ -56,6 +56,7 @@ TILE_ENVS = 32
 BLOCK_THREADS = 512
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may have on an H100
 _ENV_ROWS = 8  # per-env scalars in shared memory
+CHECKSUM_ENVS = 128  # train_rollout_random's obs checksum: the JAX function's first lanes
 
 
 class TilePlan(NamedTuple):
@@ -197,3 +198,38 @@ def fused_train_step(layout: Layout, state: State, actions: torch.Tensor,
         layout, state, actions, horizon, reset_horizon
     )
     return nxt, obs_tiles_to_nhwc(layout, obs), sparse, shaped, ev
+
+
+def train_rollout_random(layout: Layout, state: State, num_steps: int, horizon: int = 400,
+                         generator: torch.Generator | None = None, actions_fn=None):
+    """The training hot path under uniform-random play (port of the JAX
+    `train_rollout_random`, the benchmark drive of B1): `num_steps` fused
+    env steps, each one launch of the kernel on a CUDA tensor, with events,
+    shaped rewards and the encoding made every step.
+
+    Actions are uniform in 0..5 from `generator` on the state's device, or
+    `actions_fn(t)` -> (P, B) int32 (the tests replay JAX's draws). Returns
+    (final_state, totals): int32 sums of `sparse` and `shaped`, the per-event
+    counts `event_counts` (25,), and `obs_checksum`, the sum of the
+    encodings of the first CHECKSUM_ENVS envs (the JAX function's first row
+    of lanes at its default block), so that the obs is a real output.
+    Nothing is read back to the host.
+    """
+    num_players, batch = state.held.shape
+    dev = state.t.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    sparse_t, shaped_t, checksum = zero.clone(), zero.clone(), zero.clone()
+    events_t = torch.zeros((NUM_EVENTS,), dtype=torch.int32, device=dev)
+    for t in range(num_steps):
+        if actions_fn is None:
+            actions = torch.randint(0, 6, (num_players, batch), dtype=torch.int32, device=dev,
+                                    generator=generator)
+        else:
+            actions = actions_fn(t)
+        state, obs, sparse, shaped, ev = fused_train_step_tiles(layout, state, actions, horizon)
+        sparse_t += sparse.sum(dtype=torch.int32)
+        shaped_t += shaped.sum(dtype=torch.int32)
+        events_t += unpack_events(ev).sum((1, 2), dtype=torch.int32)
+        checksum += obs[..., :CHECKSUM_ENVS].sum(dtype=torch.int32)
+    return state, {"sparse": sparse_t, "shaped": shaped_t, "event_counts": events_t,
+                   "obs_checksum": checksum}

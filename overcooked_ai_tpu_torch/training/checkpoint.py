@@ -46,6 +46,26 @@ def latest_step(ckpt_dir):
         return json.load(f)["latest_step"]
 
 
+def load_policy_net(ckpt_dir, height: int, width: int, device="cuda"):
+    """The `PPONet` of a checkpoint's latest step alone, in eval mode on
+    `device`, for a layout of `height` x `width` (an agent; no optimiser). A
+    directory without the port's `step_{n}.pt` (a JAX orbax checkpoint, say)
+    raises ValueError."""
+    from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
+
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    with open(os.path.join(ckpt_dir, "config.json")) as f:
+        meta = json.load(f)
+    step = meta["latest_step"]
+    path = os.path.join(ckpt_dir, f"step_{step}.pt")
+    if not os.path.exists(path):
+        raise ValueError(f"{ckpt_dir} holds no torch checkpoint step_{step}.pt (the port "
+                         "does not read the JAX package's orbax checkpoints)")
+    net = PPONet(NetConfig(**meta["config"]["net"]), height, width)
+    net.load_state_dict(torch.load(path, map_location="cpu", weights_only=True)["net"])
+    return net.to(device).eval()
+
+
 def restore_checkpoint(ckpt_dir, ts_template: TrainState, step=None):
     """Load a checkpoint of save_checkpoint into `ts_template` (a TrainState
     from make_ppo's init_fn for the same layout and config: its net, its

@@ -104,3 +104,56 @@ def test_cuda_call_without_a_card_raises():
 
     with pytest.raises((RuntimeError, AssertionError)):
         collect_rollout(spec, PPONet(NetConfig(), 4, 5), PPOConfig(num_envs=2, horizon=3))
+
+
+def test_agent_and_planning_modules_import_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    mods = out.stdout.split()
+    for name in ("agents.agents", "agents.evaluation", "agents.loading", "planning._native",
+                 "planning.tables", "planning.cache", "planning.greedy_tables", "planning.mlam",
+                 "planning.joint", "cli.eval_matrix", "cli.eval_pool"):
+        assert f"overcooked_ai_tpu_torch.{name}" in mods, name
+
+
+def test_agent_pair_does_not_fall_back():
+    """On a device without a kernel the agent-pair step raises: no plain
+    version steps the games in B1's place."""
+    from overcooked_ai_tpu_torch.agents import agents, evaluation
+
+    spec = layout.from_layout_name("cramped_room")
+    stay = evaluation.stateless(agents.stay_agent)
+    fused_train.launches = 0
+    with pytest.raises(ValueError, match="no train-step kernel"):
+        evaluation.run_agent_pair(spec, [stay, stay], num_games=4, horizon=3, device="meta",
+                                  draws=agents.GeneratorDraws(torch.Generator(), 4))
+    with pytest.raises(ValueError, match="no train-step kernel"):
+        fused_train.train_rollout_random(spec.layout, _meta_state(spec, 4), 2,
+                                         actions_fn=lambda t: torch.zeros(
+                                             (2, 4), dtype=torch.int32, device="meta"))
+    assert fused_train.launches == 0
+
+
+def test_agent_pair_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs the agent pairs there")
+    from overcooked_ai_tpu_torch.agents import agents, evaluation, loading
+    from overcooked_ai_tpu_torch.cli import eval_matrix, eval_pool
+    from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
+
+    spec = layout.from_layout_name("cramped_room")
+    stay = evaluation.stateless(agents.stay_agent)
+    with pytest.raises((RuntimeError, AssertionError)):
+        evaluation.run_agent_pair(spec, [stay, stay], num_games=2, horizon=3)
+    with pytest.raises((RuntimeError, AssertionError)):
+        loading.build_agent("greedy", spec, build_motion_tables(spec.layout.terrain))
+    with pytest.raises((RuntimeError, AssertionError)):
+        evaluation.check_trajectories(
+            evaluation.trajectories_to_reference_format(spec, evaluation.run_agent_pair(
+                spec, [stay, stay], num_games=1, horizon=3, device="cpu")), spec)
+    for cli in (eval_matrix.main, lambda a: eval_pool.main(a + ["--ckpt", "x"])):
+        with pytest.raises(SystemExit, match="no CUDA card"):
+            cli(["--games", "1"])
