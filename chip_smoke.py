@@ -11,7 +11,8 @@ Phases, one line each with its seconds:
      version, bit for bit, explicit actions and the murmur3 stream;
   4. B1 parity: the fused train-step kernel against its plain version, bit
      for bit on state, obs, rewards and events, step by step: the main
-     path's 2048 envs and the eval's 8, ragged batches, old dynamics and
+     path's 2048 envs, `train_rollout_random`'s 16384 and the eval's 8,
+     ragged batches, old dynamics and
      `corridor` (HW = 126), a generated 16x8 layout (HW = 128, where the
      tile halves to 16 envs) and the state and actions as contiguous views
      at a 4-byte offset (the kernel's 4-byte staging copies);
@@ -53,7 +54,8 @@ Phases, one line each with its seconds:
      x 400 steps on `cramped_room` and `counter_circuit_o_1order` (each step
      one B1 launch), its wall, games/s and B1 launches, the first 8 games
      held bit for bit against the same games on the CPU with the card's
-     draws, and a traced 50-step run's device split; PPO (`PPONet` at
+     draws, the wall of one pair at the eval CLIs' default 4 games, and a
+     traced 50-step run's device split; PPO (`PPONet` at
      NetConfig() widths, random weights from a seed, saved as a checkpoint
      and loaded through `build_agent("ppo:<dir>")`) vs greedy and
      Boltzmann vs stay; the reference trajectory format and
@@ -258,7 +260,8 @@ def main() -> int:
             (cramped, 256, 110, 120, 100, False),
             (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 110, 120,
              100, False),
-            (cramped, 2048, 100, 400, 400, False),  # the main path's shape
+            (cramped, 2048, 150, 400, 400, False),  # the main path's shape
+            (cramped, 16384, 20, 400, 400, False),  # train_rollout_random's width
             (cramped, 8, 150, 80, 60, False),  # the eval's 8 envs, two resets
             (cramped, 37, 60, 400, 400, False),  # a ragged last tile
             (cramped, 2048, 20, 400, 400, True),  # views at an offset: 4-byte staging copies
@@ -286,7 +289,8 @@ def main() -> int:
             sk, sp = k[0], p[0]
         b1_err = max(b1_err, int(err))
     log(f"[4 B1 parity] {time.perf_counter() - t0:.2f}s cramped_room,coordination_ring(old) "
-        f"B=256 T=110, cramped_room B=2048 T=100, B=8 T=150, B=37 T=60 and offset views "
+        f"B=256 T=110, cramped_room B=2048 T=150, B=16384 T=20, B=8 T=150, B=37 T=60 and "
+        f"offset views "
         f"B=2048 T=20, corridor B=250 T=120, 16x8 B=256 T=120 "
         f"(tile {fused_train.tile_plan(128, 256).envs} envs), max_abs_err={b1_err}")
     if b1_err:
@@ -554,7 +558,7 @@ def main() -> int:
     t0 = time.perf_counter()
     b3_err = mixed_rows = mixed_sparse = mixed_shaped = 0
     for k, (label, (spec0, specs), B, T) in enumerate((
-            ("5x4 B=2048", (spec_pool, specs64), 2048, 100),  # the main path's shape
+            ("5x4 B=2048", (spec_pool, specs64), 2048, 150),  # the main path's shape
             ("5x4 B=37", (spec_pool, specs64), 37, 60),  # fewer envs than a block
             ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 110),
             ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 110),
@@ -579,7 +583,7 @@ def main() -> int:
         if label.startswith("mixed"):
             mixed_rows = pool.table_rows.shape[0]
         b3_err = max(b3_err, int(err))
-    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=100 and B=37 T=60, "
+    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=150 and B=37 T=60, "
         f"7x5 B=256 T=110, old dynamics B=256 T=110, mixed tables B=256 T=110 "
         f"({mixed_rows} distinct rows, shaped={mixed_shaped} sparse={mixed_sparse}), 16x8 "
         f"B=250 T=120 (tile {fused_train.tile_plan(128, 250, pool=True).envs} envs), "
@@ -954,7 +958,14 @@ def main() -> int:
             spec_g, build_greedy_tables(spec_g, device=device)))
         return [agent, agent]
 
-    G, T13, N_CPU = 1024, 400, 8
+    def traj_err(card, cpu, n):
+        """Largest difference between the card's first `n` games and the CPU's."""
+        def fields(t):
+            return (*t["state"], t["actions"], t["sparse"], t["shaped"], t["events"])
+        return max_err([torch.from_numpy(np.ascontiguousarray(x[..., :n])) for x in fields(card)],
+                       [torch.from_numpy(x) for x in fields(cpu)])
+
+    G, T13, N_CPU, G_CLI = 1024, 400, 8, 4
     pair_lines, pair_err, greedy_traj = [], 0, None
     for name in ("cramped_room", "counter_circuit_o_1order"):
         spec_g = from_layout_name(name)
@@ -970,12 +981,7 @@ def main() -> int:
                              f"B1 {T13} times and nothing else")
         cpu_traj = run_agent_pair(spec_g, greedy_pair(spec_g, "cpu"), num_games=N_CPU,
                                   horizon=T13, device="cpu", draws=Replayed(draws.log, N_CPU))
-        err = max_err([torch.from_numpy(np.ascontiguousarray(x[..., :N_CPU])) for x in
-                       (*traj["state"], traj["actions"], traj["sparse"], traj["shaped"],
-                        traj["events"])],
-                      [torch.from_numpy(x) for x in (*cpu_traj["state"], cpu_traj["actions"],
-                                                     cpu_traj["sparse"], cpu_traj["shaped"],
-                                                     cpu_traj["events"])])
+        err = traj_err(traj, cpu_traj, N_CPU)
         pair_err = max(pair_err, err)
         returns = traj["sparse"].sum(axis=(0, 1))
         pair_lines.append(f"{name} {G}x{T13} wall {t_pair:.3f}s = {G / t_pair:.1f} games/s = "
@@ -986,6 +992,15 @@ def main() -> int:
             greedy_traj, spec_cr = traj, spec_g
             if returns.mean() <= 0:
                 raise SystemExit("the greedy pair delivered nothing on cramped_room")
+            # one pair at the eval CLIs' default --games 4: the wall a user waits for
+            reset_counts()
+            _, t_cli = synced(lambda: run_agent_pair(spec_g, pair, num_games=G_CLI,
+                                                     horizon=T13, device=dev))
+            if counts() != (T13, 0, 0, 0):
+                raise SystemExit(f"run_agent_pair at {G_CLI} games launched B1/B2/B3/B4 "
+                                 f"{counts()} times")
+            pair_lines.append(f"{name} {G_CLI}x{T13} (the eval CLIs' default --games) wall "
+                              f"{t_cli:.3f}s = {G_CLI / t_cli:.2f} games/s")
     log(f"[13a agent pairs] {time.perf_counter() - t13:.2f}s greedy+greedy: "
         + "; ".join(pair_lines))
     if pair_err:
@@ -1039,12 +1054,7 @@ def main() -> int:
                                                       device=dev, draws=draws))
         cpu_bs = run_agent_pair(spec_cr, boltzmann_pair("cpu"), num_games=N_CPU, horizon=T13,
                                 device="cpu", draws=Replayed(draws.log, N_CPU))
-        bs_err = max_err([torch.from_numpy(np.ascontiguousarray(x[..., :N_CPU]))
-                          for x in (*traj_bs["state"], traj_bs["actions"], traj_bs["sparse"],
-                                    traj_bs["shaped"], traj_bs["events"])],
-                         [torch.from_numpy(x) for x in (*cpu_bs["state"], cpu_bs["actions"],
-                                                        cpu_bs["sparse"], cpu_bs["shaped"],
-                                                        cpu_bs["events"])])
+        bs_err = traj_err(traj_bs, cpu_bs, N_CPU)
         pair_err = max(pair_err, bs_err)
         del draws
         log(f"[13b ppo, boltzmann] {time.perf_counter() - t0:.2f}s ppo+greedy {G}x{T13} wall "

@@ -154,7 +154,10 @@ def encode_nhwc(layout: Layout, state: State, horizon: int = 400) -> torch.Tenso
 
 def lossless_encode_ref_format(layout: Layout, state: State, horizon: int = 400):
     """A single env's encoding in the reference's format: a tuple of one
-    (W, H, 26) int32 numpy array per player, indexed [x][y]."""
+    (W, H, 26) int32 numpy array per player, indexed [x][y].
+
+    A host-only interchange helper: it encodes on the CPU whatever device the
+    state is on (the card's path reads B1's encoding instead)."""
     batched = State(*(x[..., None] for x in to_torch(state, "cpu")))
     enc = lossless_encode(layout, batched, horizon)[..., 0]  # (P, 26, H, W)
     return tuple(np.ascontiguousarray(e.permute(2, 1, 0).numpy()) for e in enc)
