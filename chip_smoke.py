@@ -47,19 +47,31 @@ Phases, one line each with its seconds:
      bench.py's train-iteration shape (2048 envs x 400 steps, minibatch
      32768 env steps, 8 epochs) on `cramped_room`, its wall, its split into
      rollout, GAE and SGD by CUDA events on a further iteration, and a
-     profiled one of 40 steps at the same widths; one pool iteration on a regenerated 64-layout pool;
+     profiled one of 16 steps and 2 epochs at the same widths; one pool
+     iteration on a regenerated 64-layout pool;
      a small iteration on the card against the CPU learner; the two
      training CLIs in process, into a temporary directory;
  13. agent-pair evaluation: `run_agent_pair` greedy vs greedy at 1024 games
-     x 400 steps on `cramped_room` and `counter_circuit_o_1order` (each step
-     one B1 launch), its wall, games/s and B1 launches, the first 8 games
+     x 400 steps on `cramped_room` and x 200 on `counter_circuit_o_1order`
+     (each step one B1 launch), its wall, games/s and B1 launches, the first 8 games
      held bit for bit against the same games on the CPU with the card's
      draws, the wall of one pair at the eval CLIs' default 4 games, and a
      traced 50-step run's device split; PPO (`PPONet` at
      NetConfig() widths, random weights from a seed, saved as a checkpoint
      and loaded through `build_agent("ppo:<dir>")`) vs greedy and
      Boltzmann vs stay; the reference trajectory format and
-     `check_trajectories` on 4 games; the two eval CLIs in process.
+     `check_trajectories` on 4 games; the two eval CLIs in process;
+ 14. human-aware PPO: featurize, phi and the committed BC proxy
+     (`runs/r4_bc/bc_proxy_cramped_room`, read by the port's msgpack reader)
+     on the card against the CPU on 2048-env states after 100 B1 steps of
+     `cramped_room` and `counter_circuit_o_1order`; one PPO_BC + phi
+     `train_iteration` at the phase 12 shape (bc_schedule 0.5 against the
+     proxy, use_phi, phi_event_mix), its wall, its split by CUDA events, a
+     traced 16-step rollout's device idle share and the eval with the BC
+     seat; one pool iteration with the pool partner and the pool phi; a
+     small PPO_BC + phi iteration on the card against the CPU; the
+     `train_bc_proxy`, `train_ppo --bc-model --use-phi` and `eval_matrix`
+     (a `bc:` agent) CLIs in process.
 Phase 5 also times `train_rollout_random` (B1 under uniform-random play) at
 the JAX bench.py's 16384 envs x 4000 steps.
 B1's and B3's times are the profiler's device time (a timing whose session
@@ -131,10 +143,17 @@ def main() -> int:
         trajectories_to_reference_format,
     )
     from overcooked_ai_tpu_torch.agents.loading import build_agent
-    from overcooked_ai_tpu_torch.cli import eval_matrix, eval_pool, train_ppo, train_ppo_from_params
-    from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP, TERRAIN_POT
+    from overcooked_ai_tpu_torch.cli import (
+        eval_matrix,
+        eval_pool,
+        train_bc_proxy,
+        train_ppo,
+        train_ppo_from_params,
+    )
+    from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP, TERRAIN_COUNTER, TERRAIN_POT
     from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS
     from overcooked_ai_tpu_torch.core.env import batch_reset, rollout_random
+    from overcooked_ai_tpu_torch.core.featurize import featurize_batch
     from overcooked_ai_tpu_torch.core.layout import (
         build_layout,
         from_layout_name,
@@ -146,10 +165,16 @@ def main() -> int:
         gather_lanes,
         stack_layouts,
     )
+    from overcooked_ai_tpu_torch.core.potential import make_potential_fn, make_potential_fn_pool
     from overcooked_ai_tpu_torch.core.state import State
     from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
     from overcooked_ai_tpu_torch.planning.greedy_tables import build_greedy_tables
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
+    from overcooked_ai_tpu_torch.training.bc import (
+        bc_policy_batch,
+        bc_policy_batch_pool,
+        load_bc_model,
+    )
     from overcooked_ai_tpu_torch.training.checkpoint import save_checkpoint
     from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
     from overcooked_ai_tpu_torch.training.ppo import (
@@ -208,16 +233,16 @@ def main() -> int:
     b2_err = 0
     for name in ("cramped_room", "corridor"):
         lay = from_layout_name(name).layout
-        B, T = 256, 110  # 110 steps at horizon 100 cross an auto-reset
+        B, T = 256, 60  # 60 steps at horizon 50 cross an auto-reset
         state = batch_reset(lay, B, dev)
         acts = torch.from_numpy(
             np.random.RandomState(0).choice(6, size=(T, 2, B), p=PROB).astype(np.int32)
         ).to(dev)
-        got = fused_rollout.fused_rollout_actions(lay, state, acts, horizon=100)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 0, acts, T, 100)
+        got = fused_rollout.fused_rollout_actions(lay, state, acts, horizon=50)
+        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 0, acts, T, 50)
         b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-        got = fused_rollout.fused_rollout_random(lay, state, 7, T, horizon=100)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 7, None, T, 100)
+        got = fused_rollout.fused_rollout_random(lay, state, 7, T, horizon=50)
+        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 7, None, T, 50)
         b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
     # the other player counts the kernel is built for: 1 (old dynamics), 3, 4
     cfg3 = read_layout_config("multiplayer_schelling")
@@ -238,7 +263,7 @@ def main() -> int:
         want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 3, None, T, 50)
         b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
     log(f"[3 B2 parity] {time.perf_counter() - t0:.2f}s cramped_room+corridor B=256 "
-        f"T=110, 1/3/4-player layouts B=250 T=60, actions+murmur3 max_abs_err={b2_err}")
+        f"T=60, 1/3/4-player layouts B=250 T=60, actions+murmur3 max_abs_err={b2_err}")
     if b2_err:
         raise SystemExit("B2 kernel disagrees with its plain version")
 
@@ -256,19 +281,19 @@ def main() -> int:
     b1_err = 0
     cramped = from_layout_name("cramped_room").layout
     for lay, B, T, horizon, reset, offset in (
-            # urgency from step 80 of 120, an auto-reset at 100
-            (cramped, 256, 110, 120, 100, False),
-            (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 110, 120,
-             100, False),
-            (cramped, 2048, 150, 400, 400, False),  # the main path's shape
+            # urgency from step 30 of 70, an auto-reset at 50
+            (cramped, 256, 60, 70, 50, False),
+            (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 60, 70,
+             50, False),
+            (cramped, 2048, 100, 400, 400, False),  # the main path's shape
             (cramped, 16384, 20, 400, 400, False),  # train_rollout_random's width
-            (cramped, 8, 150, 80, 60, False),  # the eval's 8 envs, two resets
+            (cramped, 8, 100, 80, 60, False),  # the eval's 8 envs, urgency and a reset
             (cramped, 37, 60, 400, 400, False),  # a ragged last tile
             (cramped, 2048, 20, 400, 400, True),  # views at an offset: 4-byte staging copies
-            # HW = 126, the largest shipped layout; urgency from step 80
-            (from_layout_name("corridor").layout, 250, 120, 120, 100, False),
+            # HW = 126, the largest shipped layout; urgency from step 30
+            (from_layout_name("corridor").layout, 250, 60, 70, 50, False),
             # a generated 16x8 layout, HW = 128: the halved tile, E = 16
-            (layout_gen((16, 8), 2).generate_spec(name="big").layout, 256, 120, 120, 100,
+            (layout_gen((16, 8), 2).generate_spec(name="big").layout, 256, 60, 70, 50,
              False)):
         lay_dev = layout_on(lay, dev)  # the plain version's tables, on the card
         rng = np.random.RandomState(1)
@@ -289,9 +314,9 @@ def main() -> int:
             sk, sp = k[0], p[0]
         b1_err = max(b1_err, int(err))
     log(f"[4 B1 parity] {time.perf_counter() - t0:.2f}s cramped_room,coordination_ring(old) "
-        f"B=256 T=110, cramped_room B=2048 T=150, B=16384 T=20, B=8 T=150, B=37 T=60 and "
+        f"B=256 T=60, cramped_room B=2048 T=100, B=16384 T=20, B=8 T=100, B=37 T=60 and "
         f"offset views "
-        f"B=2048 T=20, corridor B=250 T=120, 16x8 B=256 T=120 "
+        f"B=2048 T=20, corridor B=250 T=60, 16x8 B=256 T=60 "
         f"(tile {fused_train.tile_plan(128, 256).envs} envs), max_abs_err={b1_err}")
     if b1_err:
         raise SystemExit("B1 kernel disagrees with its plain version")
@@ -416,10 +441,12 @@ def main() -> int:
         f"{b1_time[1024][2]:.6f} ms; "
         f"tile {fused_train.tile_plan(HW, 2048)}")
 
-    # the tile sweep: ms per launch for each envs x threads a block (128
-    # threads a block were the slowest at every tile on the H100, PERF.md)
+    # the tile sweep at the main path's 2048 envs: ms per launch for each
+    # envs x threads a block (128 threads a block were the slowest at every
+    # tile on the H100, and at the eval's 8 envs every tile took the same
+    # time within 2%, PERF.md)
     sweep = {}
-    for B in (2048, 8):
+    for B in (2048,):
         state = batch_reset(lay, B, dev)
         act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
         for envs in (8, 16, 32):
@@ -558,22 +585,22 @@ def main() -> int:
     t0 = time.perf_counter()
     b3_err = mixed_rows = mixed_sparse = mixed_shaped = 0
     for k, (label, (spec0, specs), B, T) in enumerate((
-            ("5x4 B=2048", (spec_pool, specs64), 2048, 150),  # the main path's shape
+            ("5x4 B=2048", (spec_pool, specs64), 2048, 100),  # the main path's shape
             ("5x4 B=37", (spec_pool, specs64), 37, 60),  # fewer envs than a block
-            ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 110),
-            ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 110),
-            ("mixed B=256", make_pool(4, 5, cfgs=MIXED), 256, 110),
-            ("16x8 B=250", make_pool(16, 2, (16, 8)), 250, 120))):  # HW = 128: E = 16
+            ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 60),
+            ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 60),
+            ("mixed B=256", make_pool(4, 5, cfgs=MIXED), 256, 60),
+            ("16x8 B=250", make_pool(16, 2, (16, 8)), 250, 60))):  # HW = 128: E = 16
         lay = lanes_of(specs, B, 10 + k)
         pool = fused_pool.pool_data(spec0, lay, dev)
         rng = np.random.RandomState(k)
         sk = sp = batch_reset(lay, B, dev)
         err = torch.zeros((), dtype=torch.int64, device=dev)
-        for _t in range(T):  # auto-resets at 100; urgency from step 80 of 120
+        for _t in range(T):  # auto-resets at 50; urgency from step 30 of 70
             a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
-            kk = fused_pool.fused_pool_train_step_tiles(spec0, pool, sk, a, horizon=120,
-                                                        reset_horizon=100)
-            pp = fused_pool.plain_pool_train_step(pool.layout, sp, a, 120, 100)
+            kk = fused_pool.fused_pool_train_step_tiles(spec0, pool, sk, a, horizon=70,
+                                                        reset_horizon=50)
+            pp = fused_pool.plain_pool_train_step(pool.layout, sp, a, 70, 50)
             for g, w in zip((*kk[0], *kk[1:]), (*pp[0], *pp[1:])):
                 err = torch.maximum(err, (g.long() - w.long()).abs().max())
             sk, sp = kk[0], pp[0]
@@ -583,10 +610,10 @@ def main() -> int:
         if label.startswith("mixed"):
             mixed_rows = pool.table_rows.shape[0]
         b3_err = max(b3_err, int(err))
-    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=150 and B=37 T=60, "
-        f"7x5 B=256 T=110, old dynamics B=256 T=110, mixed tables B=256 T=110 "
+    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=100 and B=37 T=60, "
+        f"7x5 B=256 T=60, old dynamics B=256 T=60, mixed tables B=256 T=60 "
         f"({mixed_rows} distinct rows, shaped={mixed_shaped} sparse={mixed_sparse}), 16x8 "
-        f"B=250 T=120 (tile {fused_train.tile_plan(128, 250, pool=True).envs} envs), "
+        f"B=250 T=60 (tile {fused_train.tile_plan(128, 250, pool=True).envs} envs), "
         f"max_abs_err={b3_err}")
     if mixed_rows != 4 or not mixed_shaped:
         raise SystemExit("the mixed pool's lanes did not run under four tables with shaping")
@@ -767,12 +794,32 @@ def main() -> int:
     # the two training CLIs in process, writing to a temporary directory
     t0 = time.perf_counter()
     cfg_it = PPOConfig(num_envs=2048, sgd_minibatch_size=32768)
-    init_fn, train_it = make_ppo(spec, cfg_it, dev)
+    init_fn, train_it = make_ppo(spec, cfg_it, device=dev)
     ts = init_fn(0)
-    ts, _ = train_it(ts)  # warm-up
+    ts, _ = train_it(ts)  # warm-up: a first iteration takes about 0.5 s longer (PERF.md)
     kl_before, steps_before = ts.kl_coeff.item(), ts.env_steps.item()
+    # the timed iteration, with CUDA events at its phase boundaries for the
+    # split. From the rollout's end on (GAE, the SGD loop, the KL update), a
+    # host sync that PyTorch's sync debug mode detects raises and fails the run
+    marks = {name: torch.cuda.Event(enable_timing=True)
+             for name in ("start", "rollout", "advantages", "end")}
+
+    def mark(name, _out):
+        marks[name].record()
+        if name == "rollout":
+            torch.cuda.set_sync_debug_mode("error")
+
+    def timed_iteration(train, ts):
+        marks["start"].record()
+        try:
+            out = train(ts, on_phase=mark)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        marks["end"].record()
+        return out
+
     reset_counts()
-    (ts, m), t_iter = synced(lambda: train_it(ts))
+    (ts, m), t_iter = synced(lambda: timed_iteration(train_it, ts))
     iter_counts = counts()
     b1_iter_launches = iter_counts[0]
     if iter_counts != (cfg_it.horizon, 0, 0, 0):
@@ -783,25 +830,6 @@ def main() -> int:
     if not all(np.isfinite(v) for v in metrics.values()) or steps_after != (
             steps_before + 2048 * 400):
         raise SystemExit(f"train_iteration metrics not finite or env_steps wrong: {metrics}")
-    # where an iteration's time goes: CUDA events at the phase boundaries of
-    # a further iteration (the timed one above has no event in it). From the
-    # rollout's end on (GAE, the SGD loop, the KL update), a host sync that
-    # PyTorch's sync debug mode detects raises and fails the run
-    marks = {name: torch.cuda.Event(enable_timing=True)
-             for name in ("start", "rollout", "advantages", "end")}
-
-    def mark(name, _out):
-        marks[name].record()
-        if name == "rollout":
-            torch.cuda.set_sync_debug_mode("error")
-
-    marks["start"].record()
-    try:
-        ts, _ = train_it(ts, on_phase=mark)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    marks["end"].record()
-    torch.cuda.synchronize()
     split = {"rollout": marks["start"].elapsed_time(marks["rollout"]),
              "gae_std": marks["rollout"].elapsed_time(marks["advantages"]),
              "sgd": marks["advantages"].elapsed_time(marks["end"])}
@@ -809,8 +837,8 @@ def main() -> int:
     mb = min(2 * cfg_it.sgd_minibatch_size, n_samples)
     log(f"[12a learner] {time.perf_counter() - t0:.2f}s train_iteration cramped_room 2048x400, "
         f"{n_samples // mb} minibatches of {mb} x {cfg_it.num_sgd_iter} epochs: wall "
-        f"{t_iter:.3f}s = {2048 * 400 / t_iter:.0f} env-steps/s; split (events, next "
-        f"iteration, no host sync after the rollout) ms "
+        f"{t_iter:.3f}s = {2048 * 400 / t_iter:.0f} env-steps/s; split (events, no host "
+        f"sync after the rollout) ms "
         + json.dumps({k: round(v, 1) for k, v in split.items()})
         + f"; B1/B2/B3/B4 launches={iter_counts}; kl_coeff {kl_before} -> "
         f"{metrics['kl_coeff']} (changed: {kl_before != metrics['kl_coeff']}), env_steps "
@@ -818,14 +846,16 @@ def main() -> int:
                                                      metrics.items()}))
 
     # and on the device: device time by kernel against the wall, over a
-    # profiled iteration at the same widths but 40 steps (2 minibatches of
-    # 65,536 samples an epoch: 16 Adam steps); the profiler takes 15-20 s
-    # to sum a whole iteration's records. It may drop some (phase 9's note
-    # above), so the line says how many of the 40 B1 launches it recorded
+    # profiled iteration at the same widths but 16 steps and 2 epochs (2
+    # minibatches of 32,768 samples an epoch: 4 Adam steps); the profiler
+    # takes 15-20 s to sum the records of 40 steps and 8 epochs. It may drop
+    # some (phase 9's note above), so the line says how many of the 16 B1
+    # launches it recorded
     t0 = time.perf_counter()
-    cfg_tr = PPOConfig(num_envs=2048, horizon=40, sgd_minibatch_size=32768)
-    init_tr, train_tr = make_ppo(spec, cfg_tr, dev)
-    ts_tr, _ = train_tr(init_tr(0))  # its GAE and gathers at T = 40, once untraced
+    T_TR = 16
+    cfg_tr = PPOConfig(num_envs=2048, horizon=T_TR, num_sgd_iter=2, sgd_minibatch_size=16384)
+    init_tr, train_tr = make_ppo(spec, cfg_tr, device=dev)
+    ts_tr, _ = train_tr(init_tr(0))  # its GAE and gathers at this T, once untraced
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, t_traced = synced(lambda: train_tr(ts_tr))
     by_kernel = sorted(((dev_time(e), e.count, e.key) for e in prof.key_averages()
@@ -833,13 +863,13 @@ def main() -> int:
     busy_us = sum(us for us, _, _ in by_kernel)
     b1_seen = sum(n for _, n, k in by_kernel if "train_step_kernel<false>" in k)
     top = "; ".join(f"{k[:48]} x{n} {us / 1e3:.1f}ms" for us, n, k in by_kernel[:8])
-    log(f"[12a learner trace] {time.perf_counter() - t0:.2f}s one iteration 2048x40, 16 Adam "
-        f"steps of 65536 samples: wall {t_traced * 1e3:.1f}ms device busy "
+    log(f"[12a learner trace] {time.perf_counter() - t0:.2f}s one iteration 2048x{T_TR}, 4 Adam "
+        f"steps of 32768 samples: wall {t_traced * 1e3:.1f}ms device busy "
         f"{busy_us / 1e3:.1f}ms (idle {1 - busy_us / 1e6 / t_traced:.1%}), B1 records "
-        f"{b1_seen}/40; top: {top}")
+        f"{b1_seen}/{T_TR}; top: {top}")
 
     t0 = time.perf_counter()
-    init_pool, train_pool = make_ppo(specs64, cfg_it, dev)
+    init_pool, train_pool = make_ppo(specs64, cfg_it, device=dev)
     ts_pool = init_pool(0)
     fresh = stack_layouts([layout_gen((5, 4), 1).generate_spec(name=f"regen_{i}")
                            for i in range(64)])
@@ -868,7 +898,7 @@ def main() -> int:
     small_perms = [np.random.RandomState(100 + e).permutation(2 * 32 * 50) for e in range(2)]
     small = {}
     for d in (dev, torch.device("cpu")):
-        init_s, train_s = make_ppo(spec, cfg_s, d)
+        init_s, train_s = make_ppo(spec, cfg_s, device=d)
         kept = {}
         ts_s, m_s = train_s(init_s(3),
                             sample_fn=lambda _logits, t, d=d: torch.from_numpy(small_acts[t]).to(d),
@@ -967,29 +997,30 @@ def main() -> int:
 
     G, T13, N_CPU, G_CLI = 1024, 400, 8, 4
     pair_lines, pair_err, greedy_traj = [], 0, None
-    for name in ("cramped_room", "counter_circuit_o_1order"):
+    # the second layout at 200 steps (the smoke's time budget)
+    for name, T_pair in (("cramped_room", T13), ("counter_circuit_o_1order", 200)):
         spec_g = from_layout_name(name)
         pair = greedy_pair(spec_g, dev)
         run_agent_pair(spec_g, pair, num_games=G, horizon=8, device=dev)  # warm-up
         draws = Recorded(agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(13), G))
         reset_counts()
-        traj, t_pair = synced(lambda: run_agent_pair(spec_g, pair, num_games=G, horizon=T13,
+        traj, t_pair = synced(lambda: run_agent_pair(spec_g, pair, num_games=G, horizon=T_pair,
                                                      device=dev, draws=draws))
         pair_counts = counts()
-        if pair_counts != (T13, 0, 0, 0):
+        if pair_counts != (T_pair, 0, 0, 0):
             raise SystemExit(f"run_agent_pair launched B1/B2/B3/B4 {pair_counts} times, want "
-                             f"B1 {T13} times and nothing else")
+                             f"B1 {T_pair} times and nothing else")
         cpu_traj = run_agent_pair(spec_g, greedy_pair(spec_g, "cpu"), num_games=N_CPU,
-                                  horizon=T13, device="cpu", draws=Replayed(draws.log, N_CPU))
+                                  horizon=T_pair, device="cpu", draws=Replayed(draws.log, N_CPU))
         err = traj_err(traj, cpu_traj, N_CPU)
         pair_err = max(pair_err, err)
         returns = traj["sparse"].sum(axis=(0, 1))
-        pair_lines.append(f"{name} {G}x{T13} wall {t_pair:.3f}s = {G / t_pair:.1f} games/s = "
-                          f"{G * T13 / t_pair:.0f} env-steps/s, B1 launches={pair_counts[0]}, "
+        pair_lines.append(f"{name} {G}x{T_pair} wall {t_pair:.3f}s = {G / t_pair:.1f} games/s = "
+                          f"{G * T_pair / t_pair:.0f} env-steps/s, B1 launches={pair_counts[0]}, "
                           f"mean return {returns.mean():.2f}, card vs CPU (first {N_CPU} games) "
                           f"max_abs_err={err}")
         if name == "cramped_room":
-            greedy_traj, spec_cr = traj, spec_g
+            greedy_traj, spec_cr, pair_launches = traj, spec_g, pair_counts[0]
             if returns.mean() <= 0:
                 raise SystemExit("the greedy pair delivered nothing on cramped_room")
             # one pair at the eval CLIs' default --games 4: the wall a user waits for
@@ -1035,7 +1066,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ppo")
         cfg_ck = PPOConfig(num_envs=2)
-        init_ck, _ = make_ppo(spec_cr, cfg_ck, dev)
+        init_ck, _ = make_ppo(spec_cr, cfg_ck, device=dev)
         save_checkpoint(ckpt, init_ck(9), cfg_ck, step=1, extra={"use_lstm": False})
         ppo = build_agent(f"ppo:{ckpt}", spec_cr, tables_cr, dev)
         greedy = build_agent("greedy", spec_cr, tables_cr, dev)
@@ -1096,6 +1127,202 @@ def main() -> int:
             raise SystemExit("the eval CLIs did not evaluate every pair")
     log(f"[13 agent-pair evaluation] {time.perf_counter() - t13:.2f}s")
 
+    # ---- 14. human-aware PPO: featurize, phi and the committed BC proxy on
+    # the card against the CPU; one PPO_BC + phi train_iteration at full width
+    # (B1) and one on the 64-layout pool (B3); a small iteration on the card
+    # against the CPU learner; the three human-aware CLIs in process
+    t14 = time.perf_counter()
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    proxy = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "r4_bc",
+                         "bc_proxy_cramped_room")
+    bc_params, bc_cfg = load_bc_model(proxy)  # the JAX package's msgpack, read by the port
+    feat_err, phi_err, logit_err, logit_max, n_states = 0.0, 0.0, 0.0, 0.0, 0
+    # torch.argmin keeps the first of equal minima on the card too
+    ties = torch.zeros((40, 2048), dtype=torch.int32, device=dev)
+    ties[7:] = -1
+    argmin_first = int(torch.argmin(ties, 0).max()) == 7 and int(torch.argmin(ties, 0).min()) == 7
+    for name in ("cramped_room", "counter_circuit_o_1order"):
+        spec_f = from_layout_name(name)
+        terrain = spec_f.layout.terrain
+        goals = [(x, y) for y, x in zip(*np.nonzero(terrain == TERRAIN_COUNTER))]
+        state = batch_reset(spec_f.layout, 2048, dev)
+        rng = np.random.RandomState(14)
+        for _t in range(100):
+            a = torch.from_numpy(rng.choice(6, size=(2, 2048), p=PROB).astype(np.int32)).to(dev)
+            state = fused_train.fused_train_step_tiles(spec_f.layout, state, a, horizon=400,
+                                                       reset_horizon=401)[0]
+        state_h = State(*(x.cpu() for x in state))
+        for counters in ((), goals):  # counter goals: counter objects reachable, stamps rank
+            fc = build_motion_tables(terrain, counter_goals=counters).feature_cost
+            f_card = featurize_batch(layout_on(spec_f.layout, dev), torch.as_tensor(fc).to(dev),
+                                     state)
+            f_cpu = featurize_batch(spec_f.layout, fc, state_h)
+            feat_err = max(feat_err, float((f_card.cpu() - f_cpu).abs().max()))
+        fc = build_motion_tables(terrain).feature_cost
+        phi_fn = make_potential_fn(spec_f, fc)
+        p_card = phi_fn(layout_on(spec_f.layout, dev), state).cpu()
+        p_cpu = phi_fn(spec_f.layout, state_h)
+        if not torch.allclose(p_card, p_cpu, rtol=1e-5, atol=1e-4):
+            phi_err = float("inf")
+        phi_err = max(phi_err, float((p_card - p_cpu).abs().max()))
+        partner = bc_policy_batch(spec_f, fc, bc_params, bc_cfg)
+        with torch.no_grad():
+            l_card = partner.logits(layout_on(spec_f.layout, dev), state).cpu()
+            l_cpu = partner.logits(spec_f.layout, state_h)
+        logit_err = max(logit_err, float((l_card - l_cpu).abs().max()))
+        logit_max = max(logit_max, float(l_cpu.abs().max()))
+        n_states += 2048
+    log(f"[14a featurize, phi, proxy] {time.perf_counter() - t0:.2f}s {n_states} states after "
+        f"100 B1 steps (cramped_room, counter_circuit_o_1order), card vs CPU: features "
+        f"max_abs_err={feat_err} (with and without counter goals), phi max_abs_err {phi_err:.3g} "
+        f"(rtol 1e-5, atol 1e-4), proxy logits max_abs_err {logit_err:.3g} (1e-6 of the largest "
+        f"|logit|, {logit_max:.3g}: float32 products summed in another order); argmin takes "
+        f"the first minimum on the card: {argmin_first}")
+    if feat_err or phi_err > 1e-3 or logit_err > 1e-6 * max(1.0, logit_max) or not argmin_first:
+        raise SystemExit("featurize, phi or the BC proxy on the card disagrees with the CPU")
+
+    # one PPO_BC + phi iteration at the train-iteration shape: the proxy is
+    # the partner with probability 0.5 an episode, phi shapes the reward with
+    # the event shaping; its wall, the split by CUDA events, B1's launches
+    t0 = time.perf_counter()
+    fc_cr = build_motion_tables(spec.layout.terrain).feature_cost
+    partner = bc_policy_batch(spec, fc_cr, bc_params, bc_cfg)
+    phi_cr = make_potential_fn(spec, fc_cr)
+    half = ((0, 0.5), (float("inf"), 0.5))
+    cfg_bc = PPOConfig(num_envs=2048, sgd_minibatch_size=32768, bc_schedule=half,
+                       use_phi=True, phi_event_mix=True, lr=5e-4)
+    collect_rollout(spec, net, PPOConfig(num_envs=2048, horizon=4, use_phi=True), gen, dev,
+                    potential_fn=phi_cr, bc_policy=partner, bc_factor=0.5)  # warm-up
+    init_bc, train_bc = make_ppo(spec, cfg_bc, phi_cr, partner, device=dev)
+    ts_bc = init_bc(0)
+    reset_counts()
+    (ts_bc, m_bc), t_bc = synced(lambda: timed_iteration(train_bc, ts_bc))
+    bc_counts = counts()
+    bc_split = {"rollout": marks["start"].elapsed_time(marks["rollout"]),
+                "gae_std": marks["rollout"].elapsed_time(marks["advantages"]),
+                "sgd": marks["advantages"].elapsed_time(marks["end"])}
+    bc_metrics = {k: v.item() for k, v in m_bc._asdict().items()}
+    b1_bc_launches = bc_counts[0]
+    if bc_counts != (cfg_bc.horizon, 0, 0, 0) or not all(
+            np.isfinite(v) for v in bc_metrics.values()) or not (
+            0.2 < bc_metrics["bc_sample_fraction"] < 0.3):
+        raise SystemExit(f"the PPO_BC + phi iteration: B1/B2/B3/B4 launches {bc_counts}, "
+                         f"metrics {bc_metrics}")
+    # where its rollout's time goes: the device's busy time over a traced
+    # 16-step rollout at the same width (device events only: with the host's
+    # ops the profiler takes seconds to sum the records)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, t_bc_prof = synced(lambda: collect_rollout(
+            spec, net, PPOConfig(num_envs=2048, horizon=16, use_phi=True, phi_event_mix=True),
+            gen, dev, potential_fn=phi_cr, bc_policy=partner, bc_factor=0.5))
+    busy_bc = sum(dev_time(e) for e in prof.key_averages())
+    # the eval with the partner in seat 1, 8 games x 400 (B1 at 8 envs)
+    eval_bc = make_ppo_eval(spec, num_games=8, horizon=400, device=dev, bc_policy=partner)
+    reset_counts()
+    mean_bc, t_eval_bc = synced(lambda: eval_bc(ts_bc.net, gen))
+    b1_eval_bc = counts()[0]
+    if b1_eval_bc != 400:
+        raise SystemExit(f"make_ppo_eval with the BC seat launched B1 {b1_eval_bc} times")
+    log(f"[14b PPO_BC + phi] {time.perf_counter() - t0:.2f}s train_iteration cramped_room "
+        f"2048x400, minibatch 65536 samples x 8 epochs, bc_schedule 0.5 (the committed proxy), "
+        f"use_phi + phi_event_mix: wall {t_bc:.3f}s = {2048 * 400 / t_bc:.0f} env-steps/s; split "
+        f"(events, no host sync after the rollout) ms "
+        + json.dumps({k: round(v, 1) for k, v in bc_split.items()})
+        + f"; B1/B2/B3/B4 launches={bc_counts}; bc_sample_fraction "
+        f"{bc_metrics['bc_sample_fraction']:.4f}; episode_total_reward "
+        f"{bc_metrics['episode_total_reward']:.3f}; traced rollout 2048x16 wall "
+        f"{t_bc_prof * 1e3:.1f}ms device busy {busy_bc / 1e3:.1f}ms (idle "
+        f"{1 - busy_bc / 1e6 / t_bc_prof:.1%}); eval with the BC seat 8x400 {t_eval_bc:.3f}s "
+        f"mean_sparse={mean_bc}, B1 launches={b1_eval_bc}")
+
+    # the pool: the pool partner (each lane featurizes on its own layout) and
+    # the pool phi on the 64-layout pool (fixed: their tables are per entry);
+    # one SGD epoch, since the rollout is what differs from phase 12b
+    t0 = time.perf_counter()
+    fcs64 = [build_motion_tables(s.layout.terrain).feature_cost for s in specs64]
+    init_pbc, train_pbc = make_ppo(
+        specs64, PPOConfig(num_envs=2048, sgd_minibatch_size=32768, num_sgd_iter=1,
+                           bc_schedule=half, use_phi=True, phi_event_mix=True, lr=5e-4),
+        make_potential_fn_pool(specs64), bc_policy_batch_pool(specs64, fcs64, bc_params, bc_cfg),
+        device=dev)
+    reset_counts()
+    (_, m_pbc), t_pbc = synced(lambda: train_pbc(init_pbc(0)))
+    pbc_counts = counts()
+    b3_bc_launches = pbc_counts[2]
+    if pbc_counts != (0, 0, 400, 0) or not all(np.isfinite(v.item()) for v in m_pbc):
+        raise SystemExit(f"the pool PPO_BC + phi iteration launched B1/B2/B3/B4 {pbc_counts} "
+                         "times or its metrics are not finite")
+    log(f"[14c pool PPO_BC + phi] {time.perf_counter() - t0:.2f}s train_iteration 64-layout "
+        f"pool 2048x400, 1 epoch, with bc_policy_batch_pool and the pool phi: wall {t_pbc:.3f}s = "
+        f"{2048 * 400 / t_pbc:.0f} env-steps/s; B1/B2/B3/B4 launches={pbc_counts}; "
+        f"bc_sample_fraction {m_pbc.bc_sample_fraction.item():.4f}")
+
+    # a small PPO_BC + phi iteration on the card and on the CPU from the same
+    # params, actions, partner draws (Gumbel noise from numpy), seats and
+    # permutations: integers bit for bit, losses within rtol 1e-4 / atol 1e-6,
+    # params within 1e-5, as phase 12c
+    t0 = time.perf_counter()
+    cfg_sbc = PPOConfig(num_envs=32, horizon=50, num_sgd_iter=2, sgd_minibatch_size=400,
+                        bc_schedule=half, use_phi=True, phi_event_mix=True)
+    noise = np.random.RandomState(15).gumbel(size=(50, 64, 6)).astype(np.float32)
+    seats = (torch.from_numpy(np.random.RandomState(16).rand(32).astype(np.float32)),
+             torch.from_numpy(np.random.RandomState(17).randint(0, 2, 32)))
+    small = {}
+    for d in (dev, cpu):
+        init_s, train_s = make_ppo(spec, cfg_sbc, phi_cr, partner, device=d)
+        kept = {}
+        ts_s, m_s = train_s(
+            init_s(3), sample_fn=lambda _lg, t, d=d: torch.from_numpy(small_acts[t]).to(d),
+            perm_fn=lambda e, d=d: torch.from_numpy(small_perms[e]).to(d),
+            bc_sample_fn=lambda lg, t: torch.argmax(lg + torch.from_numpy(noise[t]).to(lg.device),
+                                                    -1),
+            bc_draws=tuple(x.to(d) for x in seats), on_phase=kept.setdefault)
+        small[d.type] = (ts_s, m_s, kept["rollout"])
+    (ts_c, m_c, ro_c), (ts_h, m_h, ro_h) = small["cuda"], small["cpu"]
+    fields = ("obs", "action", "sparse", "shaped", "events", "mask")
+    sbc_int_err = max_err([getattr(ro_c, f).cpu() for f in fields],
+                          [getattr(ro_h, f) for f in fields])
+    sbc_reward_err = float((ro_c.reward.cpu() - ro_h.reward).abs().max())
+    losses = [(getattr(m_c, f).item(), getattr(m_h, f).item())
+              for f in ("policy_loss", "vf_loss", "kl", "entropy")]
+    sbc_loss_ok = all(abs(a - b) <= 1e-6 + 1e-4 * abs(b) for a, b in losses)
+    sbc_param_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        ts_c.net.state_dict().values(), ts_h.net.state_dict().values()))
+    log(f"[14d card vs CPU] {time.perf_counter() - t0:.2f}s PPO_BC + phi train_iteration "
+        f"32x50, 2 epochs: rollout integers and mask max_abs_err={sbc_int_err}, rewards "
+        f"max_abs_err {sbc_reward_err:.3g}, losses max_abs_err "
+        f"{max(abs(a - b) for a, b in losses):.3g}, params max_abs_err {sbc_param_err:.3g}; "
+        f"bc_sample_fraction {m_c.bc_sample_fraction.item():.3f}")
+    if sbc_int_err or sbc_reward_err > 1e-3 or not sbc_loss_ok or sbc_param_err > 1e-5:
+        raise SystemExit("the PPO_BC + phi learner on the card disagrees with the CPU learner")
+
+    # the human-aware CLIs in process, tiny, on the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()) as out:
+        (proxy_dir,) = train_bc_proxy.main(["--device", "cuda", "--layouts", "cramped_room",
+                                            "--num-games", "2", "--horizon", "30", "--epochs",
+                                            "2", "--out", tmp])
+        run = os.path.join(tmp, "ppo_bc")
+        train_ppo.main(["--device", "cuda", "--local-testing", "--iters", "1", "--out", run,
+                        "--num-sgd-iter", "1", "--bc-model", proxy_dir, "--bc-schedule",
+                        "0:0.5", "--use-phi", "--phi-event-mix"])
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            bc_rows = [json.loads(line) for line in f if '"kl"' in line]
+        matrix_bc = eval_matrix.main(["--device", "cuda", "--layouts", "cramped_room",
+                                      "--agents", f"bc:{proxy}", "greedy", "--games", "2",
+                                      "--horizon", "30", "--out",
+                                      os.path.join(tmp, "matrix.json")])
+    log(f"[14e CLIs] {time.perf_counter() - t0:.2f}s train_bc_proxy (2 games x 30 steps, 2 "
+        f"epochs) -> {os.path.basename(proxy_dir)}; train_ppo --bc-model --bc-schedule 0:0.5 "
+        f"--use-phi --phi-event-mix: {len(bc_rows)} iteration row, bc_factor "
+        f"{bc_rows[0]['bc_factor'] if bc_rows else None}; eval_matrix (30 steps) bc:{proxy} + "
+        f"greedy: "
+        f"{len(matrix_bc)} pairs; {len(out.getvalue().splitlines())} lines of their output")
+    if len(bc_rows) != 1 or bc_rows[0]["bc_factor"] != 0.5 or len(matrix_bc) != 4:
+        raise SystemExit("the human-aware CLIs did not train, clone or evaluate")
+    log(f"[14 human-aware PPO] {time.perf_counter() - t14:.2f}s")
+
     table = {"kernels": [
         {"name": "fused_train_step (B1)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_train.cu",
@@ -1103,9 +1330,10 @@ def main() -> int:
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
          "bound_ms": b1_bound_ms, "bound_by": "bytes", "library_ms": None,
          "collect_launches": b1_collect, "eval_launches": b1_launches - b1_collect,
-         "agent_pair_launches": pair_counts[0], "agent_pair_ms": b1_time[1024][0],
+         "agent_pair_launches": pair_launches, "agent_pair_ms": b1_time[1024][0],
          "agent_pair_plain_ms": b1_time[1024][1], "agent_pair_bound_ms": b1_time[1024][2],
          "train_rollout_random_launches": trr_launches,
+         "ppo_bc_phi_launches": b1_bc_launches, "bc_eval_launches": b1_eval_bc,
          "eval_ms": b1_time[8][0],
          "eval_plain_ms": b1_time[8][1], "eval_bound_ms": b1_time[8][2],
          "tile_envs": fused_train.TILE_ENVS, "block_threads": fused_train.BLOCK_THREADS,
@@ -1125,7 +1353,7 @@ def main() -> int:
          "replaces": "overcooked_ai_tpu/ops/fused_pool.py:513", "launches": b3_iter_launches,
          "max_abs_err": b3_err, "ms": b3_ms, "plain_ms": b3_plain_ms,
          "bound_ms": b3_bound_ms, "bound_by": "bytes", "library_ms": None,
-         "collect_launches": b3_launches},
+         "collect_launches": b3_launches, "ppo_bc_phi_launches": b3_bc_launches},
         {"name": "fused_pool_rollout (B4)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_pool_rollout.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_pool.py:286", "launches": b4_launches,

@@ -13,10 +13,12 @@ module-level classes and functions, so `save_agent` pickles them.
 Noise. JAX draws from a key tree (per step, per game, per player; the greedy
 model splits its key into (hl, ll, unstuck)). The port draws by name from a
 `Draws` source: `gumbel(name, shape)` gives Gumbel noise of shape
-(*shape, B) and `uniform(name)` a (B,) uniform in [0, 1). The names are
-"hl", "ll" and "unstuck" (the greedy model), "choice" (the random and
-sample agents: `jax.random.choice`'s `p_cuml[-1] * (1 - u)` searched in the
-cumulative probabilities) and "policy" (a PPO agent). `GeneratorDraws`
+(*shape, B), `uniform(name)` a (B,) uniform in [0, 1) and `randint(name,
+n)` a (B,) integer in [0, n). The names are "hl", "ll" and "unstuck" (the
+greedy model), "choice" (the random and sample agents:
+`jax.random.choice`'s `p_cuml[-1] * (1 - u)` searched in the cumulative
+probabilities) and "policy" (a PPO or BC agent); a wrapper hands the agent
+it wraps names under a prefix of its own (`StepDraws.scoped`). `GeneratorDraws`
 draws from a `torch.Generator`; a test replays JAX's draws from its own
 keys through the same interface, so every action is reproducible.
 
@@ -64,17 +66,26 @@ _NO_KEY = 2**31 - 1  # an int32 goal key that no candidate reaches
 
 
 class StepDraws(NamedTuple):
-    """The noise of step `t` for player `player`, from `source`."""
+    """The noise of step `t` for player `player`, from `source`, its names
+    under `prefix`."""
 
     source: object  # a Draws: gumbel(t, player, name, shape), uniform(t, player, name)
     t: int
     player: int
+    prefix: str = ""
 
     def gumbel(self, name: str, shape) -> torch.Tensor:
-        return self.source.gumbel(self.t, self.player, name, tuple(shape))
+        return self.source.gumbel(self.t, self.player, self.prefix + name, tuple(shape))
 
     def uniform(self, name: str) -> torch.Tensor:
-        return self.source.uniform(self.t, self.player, name)
+        return self.source.uniform(self.t, self.player, self.prefix + name)
+
+    def randint(self, name: str, n: int) -> torch.Tensor:
+        return self.source.randint(self.t, self.player, self.prefix + name, n)
+
+    def scoped(self, prefix: str) -> "StepDraws":
+        """These draws with names under `prefix/`, for a wrapped agent."""
+        return self._replace(prefix=f"{self.prefix}{prefix}/")
 
 
 class GeneratorDraws:
@@ -96,6 +107,10 @@ class GeneratorDraws:
         u = torch.rand(shape + (self.batch,), generator=self.generator,
                        device=self.generator.device)
         return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+    def randint(self, t, player, name, n) -> torch.Tensor:
+        return torch.randint(n, (self.batch,), generator=self.generator,
+                             device=self.generator.device)
 
 
 def choice(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

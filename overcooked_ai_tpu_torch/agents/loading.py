@@ -2,12 +2,13 @@
 
     build_agent(kind, spec, tables, device="cuda") -> AgentFn
 
-kinds: greedy | boltzmann | random | stay | ppo:<ckpt_dir>. A `ppo:`
-directory holds the port's own checkpoints (`training/checkpoint.py`:
+kinds: greedy | boltzmann | random | stay | ppo:<ckpt_dir> | bc:<model_dir>.
+A `ppo:` directory holds the port's own checkpoints (`training/checkpoint.py`:
 config.json and step_{n}.pt); the JAX package's orbax checkpoints need JAX
-to read and are not read here. `bc:<dir>` raises until the BC port (ROADMAP
-A.6), and a recurrent (`use_lstm`) checkpoint until the LSTM learner's port
-(A.8). Shared by the eval CLIs (`cli/eval_matrix.py`, `cli/eval_pool.py`).
+to read and are not read here. A `bc:` directory is the port's BC model or
+the JAX package's (`training/bc.load_bc_model` reads both), played as a
+stateless agent. A recurrent (`use_lstm`) checkpoint raises until the LSTM
+learner's port (ROADMAP A.8). Shared by the eval CLIs (`cli/eval_matrix.py`, `cli/eval_pool.py`).
 """
 
 from __future__ import annotations
@@ -81,7 +82,10 @@ def build_agent(kind: str, spec, tables, device="cuda") -> AgentFn:
     if kind == "stay":
         return stateless(stay_agent)
     if kind.startswith("bc:"):
-        raise ValueError(f"{kind}: BC agents need the BC port (ROADMAP A.6)")
+        from overcooked_ai_tpu_torch.training.bc import bc_policy_fn, load_bc_model
+
+        params, cfg = load_bc_model(kind[3:])
+        return stateless(bc_policy_fn(spec, tables.feature_cost, params, cfg))
     if kind.startswith("ppo:"):
         from overcooked_ai_tpu_torch.training.checkpoint import load_policy_net
 

@@ -50,7 +50,7 @@ def main(argv=None):
         for kind in args.agents:
             try:
                 agents[kind] = build_agent(kind, spec, tables, device)
-            except ValueError as e:
+            except (ValueError, OSError) as e:  # an unsupported kind, a missing directory
                 print(f"skip {kind} on {layout_name}: {e}")
         for a, b in itertools.product(agents, repeat=2):
             traj = run_agent_pair(spec, [agents[a], agents[b]], num_games=args.games,

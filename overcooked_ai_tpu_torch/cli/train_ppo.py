@@ -4,6 +4,8 @@
 Examples:
     python -m overcooked_ai_tpu_torch.cli.train_ppo --layout cramped_room --iters 420
     python -m overcooked_ai_tpu_torch.cli.train_ppo --local-testing --device cpu
+    python -m overcooked_ai_tpu_torch.cli.train_ppo --bc-model runs/r4_bc/bc_proxy_cramped_room \
+        --bc-schedule 0:0.5 --use-phi --phi-event-mix
 
 Defaults mirror the reference production config: 30 envs x 400-step
 episodes (train batch 12000), lr 5e-5, entropy 0.2 -> 0.1 over 3e5 steps,
@@ -11,6 +13,11 @@ episodes (train batch 12000), lr 5e-5, entropy 0.2 -> 0.1 over 3e5 steps,
 kernel (`--device cuda`, the default) or on its plain version on the CPU
 (`--device cpu`); a run on `cuda` without a card stops, it never falls
 back to the CPU. Writes metrics.jsonl and checkpoints under `--out`.
+
+PPO_BC: `--bc-model <dir>` (the port's BC directory or the JAX package's)
+is the partner, scheduled by `--bc-schedule`; it also plays seat 1 of the
+periodic evaluation. `--use-phi` shapes with the potential phi, plus the
+event shaping under `--phi-event-mix`.
 """
 
 from __future__ import annotations
@@ -28,7 +35,18 @@ def parse_args(argv=None):
     ap.add_argument("--iters", type=int, default=420)
     ap.add_argument("--num-envs", type=int, default=30,
                     help="parallel envs (reference: 30 workers x 400 = batch 12000)")
-    ap.add_argument("--lr", type=float, default=5e-5)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="learning rate (default 5e-5, or 5e-4 with --use-phi: phi's dense "
+                    "reward is small, and 5e-5 does not lift off in the JAX package's runs)")
+    ap.add_argument("--use-phi", action="store_true",
+                    help="dense reward = phi(s') - phi(s), the potential-based shaping")
+    ap.add_argument("--phi-event-mix", action="store_true",
+                    help="with --use-phi, add the event shaping to the potential difference")
+    ap.add_argument("--bc-model", default=None,
+                    help="BC model directory of the partner (PPO_BC)")
+    ap.add_argument("--bc-schedule", default=None,
+                    help="piecewise-linear BC-partner probability 't:v,t:v,...' in env steps, "
+                    "e.g. '0:1,4e6:0'; needs --bc-model")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--entropy-end", type=float, default=None,
                     help="entropy coefficient floor (reference entropy_coeff_end=0.1)")
@@ -42,7 +60,7 @@ def parse_args(argv=None):
                     help="SGD epochs per iteration (reference 8)")
     ap.add_argument("--old-dynamics", action="store_true")
     ap.add_argument("--out", default=None,
-                    help="run directory (default runs_torch/ppo_<layout>_shaped)")
+                    help="run directory (default runs_torch/ppo_<layout>_shaped, or _phi)")
     ap.add_argument("--save-freq", type=int, default=100)
     ap.add_argument("--local-testing", action="store_true",
                     help="CI scale: 2 envs, minibatch 800, no entropy bonus")
@@ -59,7 +77,19 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.target_eval is not None and not args.eval_interval:
         ap.error("--target-eval requires --eval-interval")
+    if args.bc_schedule and not args.bc_model:
+        ap.error("--bc-schedule requires --bc-model")
+    if args.lr is None:
+        args.lr = 5e-4 if args.use_phi else 5e-5
     return args
+
+
+def parse_bc_schedule(text):
+    """'t:v,t:v,...' -> ((t, v), ..., (inf, last v)); None -> no partner."""
+    if not text:
+        return ((0, 0.0), (float("inf"), 0.0))
+    pts = [tuple(float(x) for x in part.split(":")) for part in text.split(",")]
+    return tuple(pts) + ((float("inf"), pts[-1][1]),)
 
 
 def check_device(device: str) -> torch.device:
@@ -97,6 +127,8 @@ def main(argv=None):
         sched["sgd_minibatch_size"] = args.sgd_minibatch
     if args.num_sgd_iter is not None:
         sched["num_sgd_iter"] = args.num_sgd_iter
+    sched.update(use_phi=args.use_phi, phi_event_mix=args.phi_event_mix,
+                 bc_schedule=parse_bc_schedule(args.bc_schedule))
     if args.local_testing:
         config = PPOConfig(
             num_envs=2,
@@ -110,21 +142,40 @@ def main(argv=None):
     else:
         config = PPOConfig(num_envs=args.num_envs, lr=args.lr, **sched)
 
-    out_dir = args.out or f"runs_torch/ppo_{args.layout}_shaped"
+    tables = None
+    if args.bc_model or args.use_phi:
+        from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
+
+        tables = build_motion_tables(spec.layout.terrain)
+    bc_policy = None
+    if args.bc_model:
+        from overcooked_ai_tpu_torch.training.bc import bc_policy_batch, load_bc_model
+
+        bc_params, bc_cfg = load_bc_model(args.bc_model)
+        bc_policy = bc_policy_batch(spec, tables.feature_cost, bc_params, bc_cfg)
+    potential_fn = None
+    if args.use_phi:
+        from overcooked_ai_tpu_torch.core.potential import make_potential_fn
+
+        potential_fn = make_potential_fn(spec, tables.feature_cost)
+
+    shaping = "phi" if args.use_phi else "shaped"
+    out_dir = args.out or f"runs_torch/ppo_{args.layout}_{shaping}"
     os.makedirs(out_dir, exist_ok=True)
     log = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
-    init_fn, train_it = make_ppo(spec, config, device)
+    init_fn, train_it = make_ppo(spec, config, potential_fn, bc_policy, device=device)
     ts = init_fn(args.seed)
     start_iter = 0
     if args.resume:
         ts, start_iter = restore_checkpoint(out_dir, ts)
         print(f"resumed from step {start_iter}", flush=True)
     last_iter = start_iter + args.iters
-    print(f"training {args.layout} (shaped) on {device} for {args.iters} iters x "
+    print(f"training {args.layout} ({shaping}) on {device} for {args.iters} iters x "
           f"{config.train_batch_size} env steps", flush=True)
     eval_fn = None
     if args.eval_interval:
-        eval_fn = make_ppo_eval(spec, num_games=args.eval_games, device=device)
+        eval_fn = make_ppo_eval(spec, num_games=args.eval_games, device=device,
+                                bc_policy=bc_policy)
     extra = {"use_lstm": False, "layout": args.layout}
 
     t_start = time.time()

@@ -6,6 +6,9 @@ self-play over them: every iteration each env lane draws a layout of the
 pool, the vectorized equivalent of the reference's per-reset MDP
 regeneration (num_mdp=inf). With `--regen-every N` the host regenerates the
 whole pool every N iterations, so no layout repeats across the run.
+`--use-phi` shapes with each lane's potential phi
+(`core/potential.make_potential_fn_pool`), whose tables belong to the
+fixed pool: it refuses `--regen-every`.
 
 Examples:
     python -m overcooked_ai_tpu_torch.cli.train_ppo_from_params --iters 400 --pool-size 64
@@ -46,6 +49,8 @@ def parse_args(argv=None):
     ap.add_argument("--regen-every", type=int, default=0,
                     help="regenerate the whole layout pool on the host every N iterations "
                     "(0 = a fixed pool)")
+    ap.add_argument("--use-phi", action="store_true",
+                    help="dense reward = phi(s') - phi(s) per lane (a fixed pool only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="run directory (default runs_torch/ppo_from_params)")
@@ -54,7 +59,10 @@ def parse_args(argv=None):
                     help="CI scale: 6 envs, minibatch 800")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.regen_every and args.use_phi:
+        ap.error("--regen-every requires plain PPO: phi's pool tables are built for a fixed pool")
+    return args
 
 
 def main(argv=None):
@@ -77,7 +85,7 @@ def main(argv=None):
 
     common = dict(entropy_coeff_start=args.entropy_start, entropy_coeff_end=args.entropy_end,
                   entropy_coeff_horizon=args.entropy_horizon, lr=args.lr,
-                  reward_shaping_horizon=args.shaping_horizon)
+                  reward_shaping_horizon=args.shaping_horizon, use_phi=args.use_phi)
     if args.local_testing:  # x400 = 2400, the reference's CI from-params batch
         config = PPOConfig(num_envs=6, sgd_minibatch_size=800, num_sgd_iter=8, **common)
     else:  # x2 agents = 25000 samples a minibatch
@@ -86,7 +94,12 @@ def main(argv=None):
     out_dir = args.out or "runs_torch/ppo_from_params"
     os.makedirs(out_dir, exist_ok=True)
     log = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
-    init_fn, train_it = make_ppo(specs, config, device)
+    potential_fn = None
+    if args.use_phi:
+        from overcooked_ai_tpu_torch.core.potential import make_potential_fn_pool
+
+        potential_fn = make_potential_fn_pool(specs)
+    init_fn, train_it = make_ppo(specs, config, potential_fn, device=device)
     ts = init_fn(args.seed)
     start_iter = 0
     if args.resume:

@@ -1,4 +1,4 @@
-"""JAX (flax / optax) learner state -> the torch port's.
+"""JAX (flax / optax) learner state and BC params -> the torch port's.
 
 flax names the layers Conv_0.., then Dense_0.. for the hidden layers,
 then the logits and value heads as the last two Dense layers. Conv kernels
@@ -34,6 +34,23 @@ def params_from_jax(tree) -> dict:
     for i, name in enumerate(names):
         sd[f"{name}.weight"] = t(np.transpose(p[f"Dense_{i}"]["kernel"]))
         sd[f"{name}.bias"] = t(p[f"Dense_{i}"]["bias"])
+    return sd
+
+
+def bc_params_from_jax(tree) -> dict:
+    """flax `BCNet` params (a nested dict of numpy arrays, with or without
+    the top "params" key) -> a state dict for `training.bc.BCNet`: Dense_0..
+    are the hidden layers and the last Dense the logits."""
+    p = tree.get("params", tree)
+    n_dense = sum(1 for k in p if k.startswith("Dense_"))
+    if n_dense < 1 or set(p) != {f"Dense_{i}" for i in range(n_dense)}:
+        raise ValueError(f"not the params of an MLP BCNet: {sorted(p)}")
+    names = [f"hidden.{i}" for i in range(n_dense - 1)] + ["logits"]
+    sd = {}
+    for i, name in enumerate(names):
+        sd[f"{name}.weight"] = torch.from_numpy(
+            np.array(np.transpose(p[f"Dense_{i}"]["kernel"]), dtype=np.float32))
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(p[f"Dense_{i}"]["bias"], dtype=np.float32))
     return sd
 
 

@@ -23,13 +23,26 @@ the global gradient norm (optax's rule) and taken by Adam; then it updates
 the adaptive KL coefficient from the last minibatch's KL. GAE, the loss
 and Adam are plain PyTorch, as they are plain XLA in the JAX learner.
 
+Human-aware PPO, as in the JAX learner. With a BC partner (`bc_policy`,
+`training/bc.bc_policy_batch`, and a nonzero `bc_schedule`) each lane flips
+a coin per episode with p = the scheduled bc_factor, and on heads one seat,
+drawn uniformly, is the partner's (`bc_seat_mask`): the partner's actions
+replace the policy's there, and those samples are masked out of the PPO
+loss (`Rollout.mask`). With `use_phi` (and a `potential_fn`,
+`core/potential.make_potential_fn`) the dense reward is phi(s') - phi(s)
+for both players, plus the event shaping under `phi_event_mix`; phi(s') is
+taken on the post-step state, which never resets within the rollout. In
+pool mode the partner and phi read each lane's layout and tables.
+
 `make_ppo_eval` is the JAX `make_ppo_eval`: the mean sparse return of
-`num_games` self-play games, with its env step on B1 too.
+`num_games` self-play games (seat 1 the BC partner's, given one), with its
+env step on B1 too.
 
 Actions are sampled by the Gumbel-max trick and minibatches permuted from
 an explicit `torch.Generator`; JAX's draws differ, so the tests feed both
 sides the same actions through `sample_fn`, the same lanes through
-`pool_idx` and the same permutations through `perm_fn`.
+`pool_idx`, the same permutations through `perm_fn`, the same BC seats
+through `bc_draws` and the same partner actions through `bc_sample_fn`.
 """
 
 from __future__ import annotations
@@ -116,17 +129,50 @@ def gumbel_sample(logits: torch.Tensor, generator: Optional[torch.Generator]) ->
 SampleFn = Callable[[torch.Tensor, int], torch.Tensor]  # (logits, step) -> (N,) actions
 
 
+def bc_seat_mask(bc_factor, num_players: int, batch: int,
+                 generator: Optional[torch.Generator] = None, draws=None) -> torch.Tensor:
+    """Per-episode BC-partner seats, (P, B) bool with at most one True a
+    column: each lane flips a coin (p = bc_factor) for whether one seat,
+    chosen uniformly, is the partner's (reference _populate_agents).
+    draws: (u (B,) uniform in [0, 1), seat (B,) int) replacing the
+    generator's draws (JAX's `uniform(k_bc)` and `randint(k_seat)`)."""
+    if draws is None:
+        dev = generator.device if generator is not None else "cpu"
+        draws = (torch.rand((batch,), generator=generator, device=dev),
+                 torch.randint(num_players, (batch,), generator=generator, device=dev))
+    u, seat = draws
+    seats = torch.arange(num_players, device=seat.device)[:, None]
+    return (seats == seat[None]) & (u < bc_factor)[None]
+
+
+def _sampler(sample_fn, t: int, generator):
+    """The (N, A) logits -> (N,) actions of step t: the hook's, else Gumbel-max."""
+    if sample_fn is not None:
+        return lambda logits: sample_fn(logits, t)
+    return lambda logits: gumbel_sample(logits, generator)
+
+
 @torch.no_grad()
 def collect_rollout(spec, net: PPONet, config: PPOConfig,
                     generator: Optional[torch.Generator] = None, device="cuda",
                     sample_fn: Optional[SampleFn] = None, pool: Optional[Layout] = None,
                     pool_idx: Optional[torch.Tensor] = None,
-                    shaping_factor=1.0) -> Rollout:
+                    shaping_factor=1.0, potential_fn=None, bc_policy=None, bc_factor=0.0,
+                    bc_draws=None, bc_sample_fn: Optional[SampleFn] = None) -> Rollout:
     """Self-play one episode of `config.horizon` steps in `config.num_envs`
     envs under `net`.
 
     shaping_factor: a float or a 0-d float32 tensor, the weight of the
-    shaped reward in `Rollout.reward`.
+    dense reward in `Rollout.reward`: the event shaping, or with
+    `config.use_phi` phi(s') - phi(s) from `potential_fn(layout, state)`
+    (pool mode: `potential_fn(pool_idx, lane_layouts, state)`), plus the
+    event shaping under `config.phi_event_mix`.
+
+    bc_policy: the BC partner, `bc_policy(sample, layout, state)` -> (P, B)
+    actions of every seat (pool mode: `(sample, lane_layouts, state,
+    pool_idx)`); the seats of `bc_seat_mask(bc_factor, ...)` take its
+    actions, from `bc_draws` if given. `bc_sample_fn(logits, t)` replaces
+    its draws as `sample_fn` replaces the policy's.
 
     spec: one LayoutSpec, or a list of them for pool mode. In pool mode
     `pool` may replace the stacked specs with a regenerated pool of the same
@@ -142,6 +188,8 @@ def collect_rollout(spec, net: PPONet, config: PPOConfig,
         raise ValueError("PPO self-play is 2-player")
     H, W = spec.height, spec.width
     sample = sample_fn or (lambda logits, t: gumbel_sample(logits, generator))
+    if config.use_phi and potential_fn is None:
+        raise ValueError("use_phi requires a potential_fn")
 
     if pool_mode:
         src = stack_layouts(specs) if pool is None else pool
@@ -156,15 +204,31 @@ def collect_rollout(spec, net: PPONet, config: PPOConfig,
         def env_step(state, act):
             return fused_pool_train_step_tiles(spec, lanes, state, act, horizon=T,
                                                reset_horizon=T + 1)
+
+        def phi(state):
+            return potential_fn(pool_idx, layout, state)
+
+        def partner(sample, state):
+            return bc_policy(sample, layout, state, pool_idx)
     else:
         if pool is not None or pool_idx is not None:
             raise ValueError("pool and pool_idx belong to pool mode: pass a list of specs")
         layout = spec.layout
+        on_layout = layout_on(layout, device)  # the partner's and phi's reads, copied once
 
         def env_step(state, act):
             return fused_train_step_tiles(layout, state, act, horizon=T, reset_horizon=T + 1)
 
+        def phi(state):
+            return potential_fn(on_layout, state)
+
+        def partner(sample, state):
+            return bc_policy(sample, on_layout, state)
+
+    if bc_policy is not None:
+        bc_mask = bc_seat_mask(bc_factor, P, B, generator, bc_draws)
     state = batch_reset(layout, B, device)
+    phi_s = phi(state) if config.use_phi else None
     obs = torch.empty((T, P * B, H, W, NUM_LAYERS), dtype=torch.int8, device=device)
     obs[0] = encode_nhwc(layout, state, T)
     action = torch.empty((T, P * B), dtype=torch.int64, device=device)
@@ -181,30 +245,45 @@ def collect_rollout(spec, net: PPONet, config: PPOConfig,
         action[t] = sample(logits, t)
         logp[t] = F.log_softmax(logits, -1).gather(1, action[t][:, None])[:, 0]
         act = action[t].to(torch.int32).reshape(P, B)
+        if bc_policy is not None:  # the partner acts for every seat; its seats take it
+            act = torch.where(bc_mask, partner(_sampler(bc_sample_fn, t, generator), state), act)
         state, obs_t, sparse[t], shaped[t], events[t] = env_step(state, act)
+        dense = shaped[t].float()
+        if config.use_phi:  # phi(s') of the post-step state (nothing resets)
+            phi_sp = phi(state)
+            delta = (phi_sp - phi_s)[None].expand(P, B)
+            dense = delta + dense if config.phi_event_mix else delta
+            phi_s = phi_sp
         reward[t] = (sparse[t].sum(0, dtype=torch.int32)[None].float()
-                     + shaping_factor * shaped[t].float()).reshape(P * B)
+                     + shaping_factor * dense).reshape(P * B)
         if t + 1 < T:  # (P, 26, HW, B) -> (P, B, H, W, 26)
             obs[t + 1].view(P, B, H, W, NUM_LAYERS).copy_(
                 obs_t.view(P, NUM_LAYERS, H, W, B).permute(0, 4, 2, 3, 1)
             )
-    mask = torch.ones_like(logp)  # no BC partner yet (ROADMAP A.6)
+    mask = torch.ones_like(logp)
+    if bc_policy is not None:  # the partner's samples are not trained on
+        mask[:] = (~bc_mask).reshape(P * B).float()
     return Rollout(obs, action, logp, value, sparse, shaped, events, pool_idx, logits_all,
                    reward, mask)
 
 
-def make_ppo_eval(spec, num_games: int = 8, horizon: int = 400, device="cuda"):
-    """Evaluation of a policy by self-play, free of reward shaping.
+def make_ppo_eval(spec, num_games: int = 8, horizon: int = 400, device="cuda",
+                  bc_policy=None):
+    """Evaluation of a policy by self-play, free of reward shaping; with
+    `bc_policy` (as in `collect_rollout`), seat 1 is the BC partner's in
+    every game.
 
-    Returns evaluate(net, generator=None, sample_fn=None) -> mean sparse
-    return per game (a Python float).
+    Returns evaluate(net, generator=None, sample_fn=None, bc_sample_fn=None)
+    -> mean sparse return per game (a Python float).
     """
     layout = spec.layout
+    on_layout = layout_on(layout, device)
     P, B = spec.num_players, num_games
 
     @torch.no_grad()
     def evaluate(net: PPONet, generator: Optional[torch.Generator] = None,
-                 sample_fn: Optional[SampleFn] = None) -> float:
+                 sample_fn: Optional[SampleFn] = None,
+                 bc_sample_fn: Optional[SampleFn] = None) -> float:
         sample = sample_fn or (lambda logits, t: gumbel_sample(logits, generator))
         state = batch_reset(layout, B, device)
         obs = encode_nhwc(layout, state, horizon)
@@ -212,6 +291,8 @@ def make_ppo_eval(spec, num_games: int = 8, horizon: int = 400, device="cuda"):
         for t in range(horizon):
             logits, _ = net(obs)
             act = sample(logits, t).to(torch.int32).reshape(P, B)
+            if bc_policy is not None:
+                act[1] = bc_policy(_sampler(bc_sample_fn, t, generator), on_layout, state)[1]
             state, obs_t, sparse, _, _ = fused_train_step_tiles(
                 layout, state, act, horizon=horizon, reset_horizon=horizon + 1
             )
@@ -343,30 +424,36 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torc
 PhaseFn = Callable[[str, object], None]  # (phase, its output) after each phase
 
 
-def make_ppo(spec, config: PPOConfig, device="cuda", mesh=None):
+def make_ppo(spec, config: PPOConfig, potential_fn=None, bc_policy=None, mesh=None,
+             device="cuda"):
     """Build (init_fn, train_iteration) for a layout spec, or for a list of
     same-shape specs (pool mode: each iteration every lane draws a layout
     of the pool, the reference's num_mdp=inf).
+
+    potential_fn: phi for `config.use_phi` (required then), and bc_policy
+    the BC partner, used while `config.bc_schedule` is nonzero; their
+    signatures are `collect_rollout`'s.
 
     init_fn(seed) -> TrainState: the net drawn from a CPU generator seeded
     `seed` (the same weights on every device), Adam (optax's `adam`: eps
     outside the square root), and a generator on `device` seeded `seed`.
 
     train_iteration(ts, pool=None, sample_fn=None, pool_idx=None,
-    perm_fn=None, on_phase=None) -> (ts, IterMetrics). `pool` (pool mode) is
-    a regenerated pool of the same leaf shapes. The hooks replace the
-    generator's draws: `sample_fn` the actions and `pool_idx` the lanes (as
-    in `collect_rollout`), `perm_fn(epoch)` the (n_samples,) permutation of
-    an epoch. `on_phase(name, out)` is called after the "rollout" (the
+    perm_fn=None, on_phase=None, bc_draws=None, bc_sample_fn=None) -> (ts,
+    IterMetrics). `pool` (pool mode) is a regenerated pool of the same leaf
+    shapes; phi's and the partner's tables belong to the pool `make_ppo` was
+    given, so a regenerated pool with either raises. The hooks replace the
+    generator's draws: `sample_fn` the actions, `pool_idx` the lanes,
+    `bc_draws` the BC seats and `bc_sample_fn` the partner's actions (as in
+    `collect_rollout`), `perm_fn(epoch)` the (n_samples,) permutation of an
+    epoch. `on_phase(name, out)` is called after the "rollout" (the
     `Rollout`) and after the "advantages" ((advantages, value targets)).
     After the rollout (whose set-up copies do), nothing in an iteration
     waits for the card: GAE, the SGD loop and the KL update stay on the
     device.
     """
-    if config.use_phi:
-        raise ValueError("use_phi: the potential-based shaping comes with ROADMAP A.5")
-    if any(v for _, v in config.bc_schedule):
-        raise ValueError("a nonzero bc_schedule: the BC partner comes with ROADMAP A.6")
+    if config.use_phi and potential_fn is None:
+        raise ValueError("use_phi requires a potential_fn")
     if mesh is not None:
         raise ValueError("a mesh: data parallelism comes with ROADMAP A.9")
     pool_mode = isinstance(spec, (list, tuple))
@@ -378,6 +465,8 @@ def make_ppo(spec, config: PPOConfig, device="cuda", mesh=None):
     n_samples = 2 * B * T
     mb_size = min(2 * config.sgd_minibatch_size, n_samples)
     n_minibatches = n_samples // mb_size  # the tail of each permutation is dropped
+    if not any(v for _, v in config.bc_schedule):
+        bc_policy = None  # the partner never plays
 
     def init_fn(seed: int) -> TrainState:
         net = PPONet(config.net, spec0.height, spec0.width,
@@ -393,14 +482,19 @@ def make_ppo(spec, config: PPOConfig, device="cuda", mesh=None):
                         sample_fn: Optional[SampleFn] = None,
                         pool_idx: Optional[torch.Tensor] = None,
                         perm_fn: Optional[Callable[[int], torch.Tensor]] = None,
-                        on_phase: Optional[PhaseFn] = None):
+                        on_phase: Optional[PhaseFn] = None, bc_draws=None,
+                        bc_sample_fn: Optional[SampleFn] = None):
+        if pool is not None and (config.use_phi or bc_policy is not None):
+            raise ValueError("a regenerated pool with use_phi or a BC partner: their per-lane "
+                             "tables are built for the pool make_ppo was given")
         shaping_factor = _anneal(config.reward_shaping_factor, ts.env_steps,
                                  config.reward_shaping_horizon)
         entropy_coeff = _anneal(config.entropy_coeff_start, ts.env_steps,
                                 config.entropy_coeff_horizon, config.entropy_coeff_end)
         bc_factor = _bc_factor_at(config.bc_schedule, ts.env_steps)
         ro = collect_rollout(spec, ts.net, config, ts.generator, device, sample_fn, pool,
-                             pool_idx, shaping_factor)
+                             pool_idx, shaping_factor, potential_fn, bc_policy, bc_factor,
+                             bc_draws, bc_sample_fn)
         if on_phase:
             on_phase("rollout", ro)
         adv, value_targets = gae(ro.reward, ro.value, config.gamma, config.lmbda)
@@ -453,10 +547,10 @@ def make_ppo(spec, config: PPOConfig, device="cuda", mesh=None):
     return init_fn, train_iteration
 
 
-def train(spec, config: PPOConfig, num_iterations: int, seed: int = 0, log_every: int = 0,
-          device="cuda"):
+def train(spec, config: PPOConfig, num_iterations: int, seed: int = 0, potential_fn=None,
+          bc_policy=None, log_every: int = 0, device="cuda"):
     """Convenience loop; returns (final TrainState, list of IterMetrics)."""
-    init_fn, train_iteration = make_ppo(spec, config, device)
+    init_fn, train_iteration = make_ppo(spec, config, potential_fn, bc_policy, device=device)
     ts = init_fn(seed)
     history = []
     for it in range(num_iterations):

@@ -39,7 +39,7 @@ def test_restored_checkpoint_continues_bit_for_bit(tmp_path):
     (net, Adam, generator, counters) equals the one of a run that never
     saved, every param and metric bit for bit."""
     cfg = ppo.PPOConfig(**SMALL)
-    init_fn, train_iteration = ppo.make_ppo(from_layout_name("cramped_room"), cfg, "cpu")
+    init_fn, train_iteration = ppo.make_ppo(from_layout_name("cramped_room"), cfg, device="cpu")
     ts, _ = train_iteration(init_fn(1))
     checkpoint.save_checkpoint(tmp_path, ts, cfg, step=1)
     ts_a, m_a = train_iteration(ts)
@@ -61,7 +61,7 @@ def test_config_json_matches_jax(tmp_path):
     jinit, _ = jppo.make_ppo(jfrom_layout_name("cramped_room"), jppo.PPOConfig(**kw))
     jcheckpoint.save_checkpoint(tmp_path / "jax", jinit(jax.random.PRNGKey(0)),
                                 jppo.PPOConfig(**kw), step=7, extra=extra)
-    init_fn, _ = ppo.make_ppo(from_layout_name("cramped_room"), ppo.PPOConfig(**kw), "cpu")
+    init_fn, _ = ppo.make_ppo(from_layout_name("cramped_room"), ppo.PPOConfig(**kw), device="cpu")
     checkpoint.save_checkpoint(tmp_path / "torch", init_fn(0), ppo.PPOConfig(**kw), step=7,
                                extra=extra)
     want = json.loads((tmp_path / "jax" / "config.json").read_text())

@@ -157,3 +157,48 @@ def test_agent_pair_on_cuda_without_a_card_raises():
     for cli in (eval_matrix.main, lambda a: eval_pool.main(a + ["--ckpt", "x"])):
         with pytest.raises(SystemExit, match="no CUDA card"):
             cli(["--games", "1"])
+
+
+def test_human_aware_modules_import_without_jax_msgpack_or_pandas():
+    """The card's host has neither msgpack nor pandas: the BC reader is the
+    port's own, and pandas is imported only inside the CSV/pickle readers."""
+    script = _IMPORT_ALL.replace('"overcooked_ai_tpu")', '"overcooked_ai_tpu", "msgpack", "pandas")')
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    mods = out.stdout.split()
+    for name in ("core.featurize", "core.potential", "training.bc", "training._msgpack",
+                 "human_data.compat", "human_data.pipeline", "cli.train_bc_proxy"):
+        assert f"overcooked_ai_tpu_torch.{name}" in mods, name
+
+
+def _human_aware_on(device):
+    """featurize, phi and the BC partner's actions of a 4-env batch on `device`."""
+    from overcooked_ai_tpu_torch.core.featurize import featurize_batch
+    from overcooked_ai_tpu_torch.core.potential import make_potential_fn
+    from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
+    from overcooked_ai_tpu_torch.training import bc
+
+    spec = layout.from_layout_name("cramped_room")
+    fc = build_motion_tables(spec.layout.terrain).feature_cost
+    state = State(*(x.to(device) for x in env.batch_reset(spec.layout, 4, "cpu")))
+    lay = layout.layout_on(spec.layout, device)
+    params = bc.BCNet(bc.BCConfig(), 96).state_dict()
+    partner = bc.bc_policy_batch(spec, fc, params, bc.BCConfig(), stochastic=False)
+    return (featurize_batch(lay, torch.as_tensor(fc, device=device), state),
+            make_potential_fn(spec, fc)(lay, state), partner(None, lay, state))
+
+
+def test_featurize_phi_and_bc_stay_on_the_state_device():
+    """Nothing moves to the CPU: on a device without data (meta) every
+    output stays there."""
+    feats, phi, acts = _human_aware_on("meta")
+    assert feats.device.type == phi.device.type == acts.device.type == "meta"
+    assert feats.shape == (4, 2, 96) and phi.shape == (4,) and acts.shape == (2, 4)
+
+
+def test_featurize_phi_and_bc_on_cuda_without_a_card_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py phase 14 runs them there")
+    with pytest.raises((RuntimeError, AssertionError)):
+        _human_aware_on("cuda")

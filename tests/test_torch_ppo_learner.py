@@ -224,15 +224,24 @@ def test_clip_and_adam_match_optax(scale):
     assert all(n < max_norm for n in norms) if scale < 0.1 else all(n > max_norm for n in norms)
 
 
-@pytest.mark.parametrize("change,item", [({"use_phi": True}, "A.5"),
-                                         ({"bc_schedule": ((0, 0.5), (float("inf"), 0.5))},
-                                          "A.6"),
+@pytest.mark.parametrize("change,item", [("use_phi", "potential_fn"),
+                                         ("regenerated", "regenerated pool"),
                                          ("mesh", "A.9")])
 def test_make_ppo_refuses_what_comes_later(change, item):
+    """use_phi without a potential_fn (JAX ppo.py asserts it), a regenerated
+    pool with phi or a BC partner (whose tables belong to the fixed pool),
+    and a mesh (data parallelism, ROADMAP A.9)."""
     spec = from_layout_name("cramped_room")
     if change == "mesh":
         with pytest.raises(ValueError, match=item):
             ppo.make_ppo(spec, ppo.PPOConfig(), device="cpu", mesh=object())
-    else:
+    elif change == "use_phi":
         with pytest.raises(ValueError, match=item):
-            ppo.make_ppo(spec, ppo.PPOConfig(**change), device="cpu")
+            ppo.make_ppo(spec, ppo.PPOConfig(use_phi=True), device="cpu")
+    else:
+        specs = [gen.LayoutGenerator(rng=np.random.RandomState(4)).generate_spec(name=f"g{i}")
+                 for i in range(2)]
+        cfg = ppo.PPOConfig(use_phi=True, num_envs=2, horizon=4)
+        init_fn, train_iteration = ppo.make_ppo(specs, cfg, lambda *a: None, device="cpu")
+        with pytest.raises(ValueError, match=item):
+            train_iteration(init_fn(0), pool=gen.stack_layouts(specs))
