@@ -45,17 +45,18 @@ Phases, one line each with its seconds:
      one counter to another by explicit actions;
  12. the learner at full width: `make_ppo`'s `train_iteration` at the JAX
      bench.py's train-iteration shape (2048 envs x 400 steps, minibatch
-     32768 env steps, 8 epochs) on `cramped_room`, its wall, its split into
-     rollout, GAE and SGD by CUDA events on a further iteration, and a
+     32768 env steps, 8 epochs) on `cramped_room`, after a 32-step warm-up
+     at its minibatch shape, its wall and its split into rollout, GAE and
+     SGD by CUDA events, and a
      profiled one of 16 steps and 2 epochs at the same widths; one pool
-     iteration on a regenerated 64-layout pool;
+     iteration (one epoch) on a regenerated 64-layout pool;
      a small iteration on the card against the CPU learner; the two
      training CLIs in process, into a temporary directory;
  13. agent-pair evaluation: `run_agent_pair` greedy vs greedy at 1024 games
      x 400 steps on `cramped_room` and x 200 on `counter_circuit_o_1order`
      (each step one B1 launch), its wall, games/s and B1 launches, the first 8 games
-     held bit for bit against the same games on the CPU with the card's
-     draws, the wall of one pair at the eval CLIs' default 4 games, and a
+     held bit for bit over their first 200 steps against the same games on
+     the CPU with the card's draws, the wall of one pair at the eval CLIs' default 4 games, and a
      traced 50-step run's device split; PPO (`PPONet` at
      NetConfig() widths, random weights from a seed, saved as a checkpoint
      and loaded through `build_agent("ppo:<dir>")`) vs greedy and
@@ -68,10 +69,20 @@ Phases, one line each with its seconds:
      `train_iteration` at the phase 12 shape (bc_schedule 0.5 against the
      proxy, use_phi, phi_event_mix), its wall, its split by CUDA events, a
      traced 16-step rollout's device idle share and the eval with the BC
-     seat; one pool iteration with the pool partner and the pool phi; a
-     small PPO_BC + phi iteration on the card against the CPU; the
+     seat; one pool iteration (200 steps, one epoch) with the pool partner
+     and the pool phi; a small PPO_BC + phi iteration on the card against the CPU; the
      `train_bc_proxy`, `train_ppo --bc-model --use-phi` and `eval_matrix`
-     (a `bc:` agent) CLIs in process.
+     (a `bc:` agent) CLIs in process;
+ 15. the recurrent learner: `LSTMPPONet` (NetConfig() widths, cell 256) on
+     the card against the CPU over a 20-step chunk of phase 5's obs from a
+     nonzero carry; one `make_ppo_lstm` `train_iteration` at the phase 12
+     shape (25 minibatches of 3276 chunks of 20 steps, 8 epochs), its wall
+     and its split by CUDA events, B1 400 launches, and a profiled one of
+     20 steps and 2 epochs at the same widths; one pool iteration
+     (one epoch, B3 400 launches); a 32 x 40 iteration on the card against
+     the CPU learner; `make_ppo_lstm_eval` at 8 x 400; `train_ppo
+     --use-lstm` (then `--resume`), `train_ppo_from_params --use-lstm` and
+     `eval_matrix` with the LSTM checkpoint as a `ppo:` agent, in process.
 Phase 5 also times `train_rollout_random` (B1 under uniform-random play) at
 the JAX bench.py's 16384 envs x 4000 steps.
 B1's and B3's times are the profiler's device time (a timing whose session
@@ -86,6 +97,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -176,12 +188,17 @@ def main() -> int:
         load_bc_model,
     )
     from overcooked_ai_tpu_torch.training.checkpoint import save_checkpoint
-    from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
+    from overcooked_ai_tpu_torch.training.networks import LSTMPPONet, NetConfig, PPONet
     from overcooked_ai_tpu_torch.training.ppo import (
         PPOConfig,
         collect_rollout,
         make_ppo,
         make_ppo_eval,
+    )
+    from overcooked_ai_tpu_torch.training.ppo_lstm import (
+        MAX_SEQ_LEN,
+        make_ppo_lstm,
+        make_ppo_lstm_eval,
     )
 
     dev = torch.device("cuda", 0)
@@ -251,7 +268,7 @@ def main() -> int:
                    build_layout("schelling_3p", cfg3),
                    from_layout_name("multiplayer_schelling")):
         lay, P = spec_p.layout, spec_p.num_players
-        B, T = 250, 60  # a ragged last block; crosses the auto-reset at 50
+        B, T = 250, 55  # a ragged last block; crosses the auto-reset at 50
         state = batch_reset(lay, B, dev)
         acts = torch.from_numpy(
             np.random.RandomState(P).choice(6, size=(T, P, B), p=PROB).astype(np.int32)
@@ -263,7 +280,7 @@ def main() -> int:
         want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 3, None, T, 50)
         b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
     log(f"[3 B2 parity] {time.perf_counter() - t0:.2f}s cramped_room+corridor B=256 "
-        f"T=60, 1/3/4-player layouts B=250 T=60, actions+murmur3 max_abs_err={b2_err}")
+        f"T=60, 1/3/4-player layouts B=250 T=55, actions+murmur3 max_abs_err={b2_err}")
     if b2_err:
         raise SystemExit("B2 kernel disagrees with its plain version")
 
@@ -285,9 +302,9 @@ def main() -> int:
             (cramped, 256, 60, 70, 50, False),
             (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 60, 70,
              50, False),
-            (cramped, 2048, 100, 400, 400, False),  # the main path's shape
+            (cramped, 2048, 60, 400, 400, False),  # the main path's shape
             (cramped, 16384, 20, 400, 400, False),  # train_rollout_random's width
-            (cramped, 8, 100, 80, 60, False),  # the eval's 8 envs, urgency and a reset
+            (cramped, 8, 70, 80, 60, False),  # the eval's 8 envs, urgency and a reset
             (cramped, 37, 60, 400, 400, False),  # a ragged last tile
             (cramped, 2048, 20, 400, 400, True),  # views at an offset: 4-byte staging copies
             # HW = 126, the largest shipped layout; urgency from step 30
@@ -314,7 +331,7 @@ def main() -> int:
             sk, sp = k[0], p[0]
         b1_err = max(b1_err, int(err))
     log(f"[4 B1 parity] {time.perf_counter() - t0:.2f}s cramped_room,coordination_ring(old) "
-        f"B=256 T=60, cramped_room B=2048 T=100, B=16384 T=20, B=8 T=100, B=37 T=60 and "
+        f"B=256 T=60, cramped_room B=2048 T=60, B=16384 T=20, B=8 T=70, B=37 T=60 and "
         f"offset views "
         f"B=2048 T=20, corridor B=250 T=60, 16x8 B=256 T=60 "
         f"(tile {fused_train.tile_plan(128, 256).envs} envs), max_abs_err={b1_err}")
@@ -343,6 +360,7 @@ def main() -> int:
           and int(ro.events.ne(0).sum()) > 0 and mean_return >= 0)
     if not ok:
         raise SystemExit("collect_rollout / make_ppo_eval output is malformed")
+    lstm_obs = ro.obs[:MAX_SEQ_LEN].transpose(0, 1).clone()  # phase 15a's 20-step chunk
     log(f"[5 policy path] {t_collect + t_eval:.2f}s collect 2048x400 {t_collect:.3f}s = "
         f"{2048 * 400 / t_collect:.0f} env-steps/s; eval 8x400 {t_eval:.3f}s "
         f"mean_sparse={mean_return}; B1 launches={b1_launches} (400+400) B2={b2_main5}; "
@@ -403,8 +421,9 @@ def main() -> int:
         return out, sorted(times)[1]
 
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # device events only: with the host's ops the profiler takes seconds to
+    # sum the records, and its host overhead would stretch the wall
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, t_prof = synced(lambda: collect_rollout(spec, net, PPOConfig(num_envs=2048, horizon=32),
                                                    gen, dev))
     by_kernel = sorted(((dev_time(e), e.key) for e in prof.key_averages() if dev_time(e) > 0),
@@ -563,7 +582,7 @@ def main() -> int:
              ("3 players", *make_pool(16, 3, (7, 5), num_players=3)),
              ("4 players", *make_pool(16, 4, (7, 5), num_players=4))]
     for k, (_, spec0, specs) in enumerate(cases):
-        B, T, P = 250, 60, spec0.num_players  # a ragged last block; resets at 50
+        B, T, P = 250, 55, spec0.num_players  # a ragged last block; resets at 50
         lay = lanes_of(specs, B, k)
         state = batch_reset(lay, B, dev)
         pacts = torch.from_numpy(
@@ -576,7 +595,7 @@ def main() -> int:
         want = fused_pool.plain_pool_rollout(lay, state, 3, None, T, 50)
         b4_err = max(b4_err, max_err((*got[0], got[1]), (*want[0], want[1])))
     log(f"[7 B4 parity] {time.perf_counter() - t0:.2f}s 64-layout pool B=16384 T={T_CMP} "
-        f"murmur3 (return={b4_cmp_return}); B=250 T=60 actions+murmur3: "
+        f"murmur3 (return={b4_cmp_return}); B=250 T=55 actions+murmur3: "
         f"{', '.join(c[0] for c in cases)}; max_abs_err={b4_err}")
     if b4_err:
         raise SystemExit("B4 kernel disagrees with its plain version")
@@ -585,7 +604,7 @@ def main() -> int:
     t0 = time.perf_counter()
     b3_err = mixed_rows = mixed_sparse = mixed_shaped = 0
     for k, (label, (spec0, specs), B, T) in enumerate((
-            ("5x4 B=2048", (spec_pool, specs64), 2048, 100),  # the main path's shape
+            ("5x4 B=2048", (spec_pool, specs64), 2048, 60),  # the main path's shape
             ("5x4 B=37", (spec_pool, specs64), 37, 60),  # fewer envs than a block
             ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 60),
             ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 60),
@@ -610,7 +629,7 @@ def main() -> int:
         if label.startswith("mixed"):
             mixed_rows = pool.table_rows.shape[0]
         b3_err = max(b3_err, int(err))
-    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=100 and B=37 T=60, "
+    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=60 and B=37 T=60, "
         f"7x5 B=256 T=60, old dynamics B=256 T=60, mixed tables B=256 T=60 "
         f"({mixed_rows} distinct rows, shaped={mixed_shaped} sparse={mixed_sparse}), 16x8 "
         f"B=250 T=60 (tile {fused_train.tile_plan(128, 250, pool=True).envs} envs), "
@@ -636,8 +655,7 @@ def main() -> int:
           and int(ro.events.ne(0).sum()) > 0)
     if not ok:
         raise SystemExit("pool collect_rollout output is malformed")
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, t_prof = synced(lambda: collect_rollout(
             specs64, net_pool, PPOConfig(num_envs=2048, horizon=32), gen, dev))
     by_kernel = sorted(((dev_time(e), e.key) for e in prof.key_averages() if dev_time(e) > 0),
@@ -796,7 +814,10 @@ def main() -> int:
     cfg_it = PPOConfig(num_envs=2048, sgd_minibatch_size=32768)
     init_fn, train_it = make_ppo(spec, cfg_it, device=dev)
     ts = init_fn(0)
-    ts, _ = train_it(ts)  # warm-up: a first iteration takes about 0.5 s longer (PERF.md)
+    # warm-up at the timed iteration's minibatch shape (a first iteration takes
+    # about 0.5 s longer, PERF.md): 32 steps, one epoch of 2 minibatches
+    make_ppo(spec, PPOConfig(num_envs=2048, horizon=32, num_sgd_iter=1,
+                             sgd_minibatch_size=32768), device=dev)[1](ts)
     kl_before, steps_before = ts.kl_coeff.item(), ts.env_steps.item()
     # the timed iteration, with CUDA events at its phase boundaries for the
     # split. From the rollout's end on (GAE, the SGD loop, the KL update), a
@@ -868,8 +889,11 @@ def main() -> int:
         f"{busy_us / 1e3:.1f}ms (idle {1 - busy_us / 1e6 / t_traced:.1%}), B1 records "
         f"{b1_seen}/{T_TR}; top: {top}")
 
+    # the pool iteration: one SGD epoch, since the rollout is what differs
+    # from 12a (its SGD is 12a's work on the same shapes)
     t0 = time.perf_counter()
-    init_pool, train_pool = make_ppo(specs64, cfg_it, device=dev)
+    init_pool, train_pool = make_ppo(specs64, dataclasses.replace(cfg_it, num_sgd_iter=1),
+                                     device=dev)
     ts_pool = init_pool(0)
     fresh = stack_layouts([layout_gen((5, 4), 1).generate_spec(name=f"regen_{i}")
                            for i in range(64)])
@@ -883,8 +907,9 @@ def main() -> int:
     if not all(np.isfinite(v.item()) for v in m_pool):
         raise SystemExit("pool train_iteration metrics not finite")
     log(f"[12b pool learner] {time.perf_counter() - t0:.2f}s train_iteration 64-layout pool "
-        f"(regenerated) 2048x400: wall {t_pool_iter:.3f}s = {2048 * 400 / t_pool_iter:.0f} "
-        f"env-steps/s (first call, no warm-up); B1/B2/B3/B4 launches={pool_iter_counts}; "
+        f"(regenerated) 2048x400, 1 epoch: wall {t_pool_iter:.3f}s = "
+        f"{2048 * 400 / t_pool_iter:.0f} env-steps/s (first call, no warm-up); B1/B2/B3/B4 "
+        f"launches={pool_iter_counts}; "
         f"shaped={m_pool.episode_shaped_reward.item():.3f} kl={m_pool.kl.item():.3g}")
 
     # a small iteration on the card and on the CPU from the same params, with
@@ -989,13 +1014,16 @@ def main() -> int:
         return [agent, agent]
 
     def traj_err(card, cpu, n):
-        """Largest difference between the card's first `n` games and the CPU's."""
+        """Largest difference between the card's first `n` games and the CPU's,
+        over the CPU's steps (the card's first ones)."""
         def fields(t):
             return (*t["state"], t["actions"], t["sparse"], t["shaped"], t["events"])
-        return max_err([torch.from_numpy(np.ascontiguousarray(x[..., :n])) for x in fields(card)],
-                       [torch.from_numpy(x) for x in fields(cpu)])
+        steps = cpu["actions"].shape[0]
+        return max_err([torch.from_numpy(np.ascontiguousarray(x[:steps, ..., :n]))
+                        for x in fields(card)], [torch.from_numpy(x) for x in fields(cpu)])
 
-    G, T13, N_CPU, G_CLI = 1024, 400, 8, 4
+    # the CPU replays the first T_CPU steps of the card's first N_CPU games
+    G, T13, N_CPU, T_CPU, G_CLI = 1024, 400, 8, 200, 4
     pair_lines, pair_err, greedy_traj = [], 0, None
     # the second layout at 200 steps (the smoke's time budget)
     for name, T_pair in (("cramped_room", T13), ("counter_circuit_o_1order", 200)):
@@ -1011,13 +1039,15 @@ def main() -> int:
             raise SystemExit(f"run_agent_pair launched B1/B2/B3/B4 {pair_counts} times, want "
                              f"B1 {T_pair} times and nothing else")
         cpu_traj = run_agent_pair(spec_g, greedy_pair(spec_g, "cpu"), num_games=N_CPU,
-                                  horizon=T_pair, device="cpu", draws=Replayed(draws.log, N_CPU))
+                                  horizon=min(T_pair, T_CPU), device="cpu",
+                                  draws=Replayed(draws.log, N_CPU))
         err = traj_err(traj, cpu_traj, N_CPU)
         pair_err = max(pair_err, err)
         returns = traj["sparse"].sum(axis=(0, 1))
         pair_lines.append(f"{name} {G}x{T_pair} wall {t_pair:.3f}s = {G / t_pair:.1f} games/s = "
                           f"{G * T_pair / t_pair:.0f} env-steps/s, B1 launches={pair_counts[0]}, "
-                          f"mean return {returns.mean():.2f}, card vs CPU (first {N_CPU} games) "
+                          f"mean return {returns.mean():.2f}, card vs CPU (first {N_CPU} games, "
+                          f"{min(T_pair, T_CPU)} steps) "
                           f"max_abs_err={err}")
         if name == "cramped_room":
             greedy_traj, spec_cr, pair_launches = traj, spec_g, pair_counts[0]
@@ -1039,8 +1069,7 @@ def main() -> int:
 
     # where a step's time goes: a traced 50-step greedy pair at 1024 games
     pair = greedy_pair(spec_cr, dev)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, t_traced = synced(lambda: run_agent_pair(spec_cr, pair, num_games=G, horizon=50,
                                                     device=dev))
     by_kernel = sorted(((dev_time(e), e.key) for e in prof.key_averages() if dev_time(e) > 0),
@@ -1083,7 +1112,7 @@ def main() -> int:
         draws = Recorded(agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(2), G))
         traj_bs, t_bs = synced(lambda: run_agent_pair(spec_cr, pair, num_games=G, horizon=T13,
                                                       device=dev, draws=draws))
-        cpu_bs = run_agent_pair(spec_cr, boltzmann_pair("cpu"), num_games=N_CPU, horizon=T13,
+        cpu_bs = run_agent_pair(spec_cr, boltzmann_pair("cpu"), num_games=N_CPU, horizon=T_CPU,
                                 device="cpu", draws=Replayed(draws.log, N_CPU))
         bs_err = traj_err(traj_bs, cpu_bs, N_CPU)
         pair_err = max(pair_err, bs_err)
@@ -1093,7 +1122,7 @@ def main() -> int:
             f"{traj_pg['sparse'].sum(axis=(0, 1)).mean():.2f}; boltzmann+stay {G}x{T13} wall "
             f"{t_bs:.3f}s = {G / t_bs:.1f} games/s, mean return "
             f"{traj_bs['sparse'].sum(axis=(0, 1)).mean():.2f}, card vs CPU (first {N_CPU} "
-            f"games) max_abs_err={bs_err}")
+            f"games, {T_CPU} steps) max_abs_err={bs_err}")
         if pg_counts != (T13, 0, 0, 0) or not all(
                 ((t["actions"] >= 0) & (t["actions"] < 6)).all() for t in (traj_pg, traj_bs)):
             raise SystemExit("the PPO or Boltzmann pair is malformed")
@@ -1238,11 +1267,12 @@ def main() -> int:
 
     # the pool: the pool partner (each lane featurizes on its own layout) and
     # the pool phi on the 64-layout pool (fixed: their tables are per entry);
-    # one SGD epoch, since the rollout is what differs from phase 12b
+    # one SGD epoch, since the rollout is what differs from phase 12b, and
+    # 200 steps (the smoke's time budget)
     t0 = time.perf_counter()
     fcs64 = [build_motion_tables(s.layout.terrain).feature_cost for s in specs64]
     init_pbc, train_pbc = make_ppo(
-        specs64, PPOConfig(num_envs=2048, sgd_minibatch_size=32768, num_sgd_iter=1,
+        specs64, PPOConfig(num_envs=2048, horizon=200, sgd_minibatch_size=32768, num_sgd_iter=1,
                            bc_schedule=half, use_phi=True, phi_event_mix=True, lr=5e-4),
         make_potential_fn_pool(specs64), bc_policy_batch_pool(specs64, fcs64, bc_params, bc_cfg),
         device=dev)
@@ -1250,12 +1280,12 @@ def main() -> int:
     (_, m_pbc), t_pbc = synced(lambda: train_pbc(init_pbc(0)))
     pbc_counts = counts()
     b3_bc_launches = pbc_counts[2]
-    if pbc_counts != (0, 0, 400, 0) or not all(np.isfinite(v.item()) for v in m_pbc):
+    if pbc_counts != (0, 0, 200, 0) or not all(np.isfinite(v.item()) for v in m_pbc):
         raise SystemExit(f"the pool PPO_BC + phi iteration launched B1/B2/B3/B4 {pbc_counts} "
                          "times or its metrics are not finite")
     log(f"[14c pool PPO_BC + phi] {time.perf_counter() - t0:.2f}s train_iteration 64-layout "
-        f"pool 2048x400, 1 epoch, with bc_policy_batch_pool and the pool phi: wall {t_pbc:.3f}s = "
-        f"{2048 * 400 / t_pbc:.0f} env-steps/s; B1/B2/B3/B4 launches={pbc_counts}; "
+        f"pool 2048x200, 1 epoch, with bc_policy_batch_pool and the pool phi: wall {t_pbc:.3f}s = "
+        f"{2048 * 200 / t_pbc:.0f} env-steps/s; B1/B2/B3/B4 launches={pbc_counts}; "
         f"bc_sample_fraction {m_pbc.bc_sample_fraction.item():.4f}")
 
     # a small PPO_BC + phi iteration on the card and on the CPU from the same
@@ -1323,6 +1353,172 @@ def main() -> int:
         raise SystemExit("the human-aware CLIs did not train, clone or evaluate")
     log(f"[14 human-aware PPO] {time.perf_counter() - t14:.2f}s")
 
+    # ---- 15. the recurrent learner: LSTMPPONet on the card against the CPU;
+    # one make_ppo_lstm train_iteration at full width (B1) and one on the
+    # 64-layout pool (B3); a small one on the card against the CPU learner;
+    # make_ppo_lstm_eval; the --use-lstm CLIs and an LSTM agent in process
+    t15 = time.perf_counter()
+    t0 = time.perf_counter()
+    lstm = LSTMPPONet(NetConfig(), spec.height, spec.width,
+                      generator=torch.Generator().manual_seed(15))
+    lstm_cpu = LSTMPPONet(NetConfig(), spec.height, spec.width)
+    lstm_cpu.load_state_dict(lstm.state_dict())
+    lstm = lstm.to(dev)
+    seq = lstm_obs  # phase 5's cramped_room rollout, 2048 envs: (4096, 20, H, W, 26)
+    carry_gen = torch.Generator().manual_seed(16)
+    carry0 = (torch.randn((seq.shape[0], 256), generator=carry_gen),
+              torch.tanh(torch.randn((seq.shape[0], 256), generator=carry_gen)))
+    with torch.no_grad():
+        out_card = lstm(seq, tuple(x.to(dev) for x in carry0))
+        out_cpu = lstm_cpu(seq.cpu(), carry0)
+    net_errs = {}
+    for name, a, b in zip(("logits", "value", "c", "h"), (out_card[0], out_card[1], *out_card[2]),
+                          (out_cpu[0], out_cpu[1], *out_cpu[2])):
+        net_errs[name] = (float((a.cpu() - b).abs().max()), float(b.abs().max()))
+    net_ok = all(err <= 1e-5 * max(1.0, big) for err, big in net_errs.values())
+    log(f"[15a LSTMPPONet] {time.perf_counter() - t0:.2f}s NetConfig() (cell 256), "
+        f"{seq.shape[0]} sequences x {MAX_SEQ_LEN} steps of phase 5's obs from a nonzero "
+        f"carry, card vs CPU max_abs_err (largest |value|), within 1e-5 of the largest: "
+        + json.dumps({k: [float(f"{e:.3g}"), round(m, 3)] for k, (e, m) in net_errs.items()}))
+    if not net_ok:
+        raise SystemExit("LSTMPPONet on the card disagrees with the CPU")
+
+    # one full-width iteration (2048 x 400, minibatch 32768 env steps: 25
+    # minibatches of 3276 chunks x 8 epochs), split by CUDA events with no host
+    # sync after the rollout; no warm-up of its own (phase 12 warmed the torso)
+    t0 = time.perf_counter()
+    cfg_l = PPOConfig(num_envs=2048, sgd_minibatch_size=32768)
+    init_l, train_l = make_ppo_lstm(spec, cfg_l, device=dev)
+    ts_l = init_l(0)
+    reset_counts()
+    (ts_l, m_l), t_l = synced(lambda: timed_iteration(train_l, ts_l))
+    l_counts = counts()
+    b1_lstm_launches = l_counts[0]
+    l_split = {"rollout": marks["start"].elapsed_time(marks["rollout"]),
+               "gae_std": marks["rollout"].elapsed_time(marks["advantages"]),
+               "sgd": marks["advantages"].elapsed_time(marks["end"])}
+    l_metrics = {k: v.item() for k, v in m_l._asdict().items()}
+    if l_counts != (cfg_l.horizon, 0, 0, 0) or not all(
+            np.isfinite(v) for v in l_metrics.values()) or ts_l.env_steps.item() != 2048 * 400:
+        raise SystemExit(f"the LSTM iteration: B1/B2/B3/B4 launches {l_counts}, metrics "
+                         f"{l_metrics}")
+    n_chunks = 2 * 2048 * 400 // MAX_SEQ_LEN
+    mb_chunks = 2 * cfg_l.sgd_minibatch_size // MAX_SEQ_LEN
+    log(f"[15b LSTM learner] {time.perf_counter() - t0:.2f}s make_ppo_lstm train_iteration "
+        f"cramped_room 2048x400, {n_chunks // mb_chunks} minibatches of {mb_chunks} chunks "
+        f"x {cfg_l.num_sgd_iter} epochs (first call): wall {t_l:.3f}s = "
+        f"{2048 * 400 / t_l:.0f} env-steps/s on {smi}; split (events, no host sync after the "
+        f"rollout) ms " + json.dumps({k: round(v, 1) for k, v in l_split.items()})
+        + f"; B1/B2/B3/B4 launches={l_counts}; metrics "
+        + json.dumps({k: round(v, 6) for k, v in l_metrics.items()}))
+
+    # and on the device: a profiled iteration at the same widths, 20 steps and
+    # 2 epochs of one minibatch of 3276 chunks (the timed iteration's shape,
+    # the tail of 820 chunks dropped): 2 Adam steps
+    t0 = time.perf_counter()
+    init_lt, train_lt = make_ppo_lstm(spec, PPOConfig(num_envs=2048, horizon=MAX_SEQ_LEN,
+                                                      num_sgd_iter=2, sgd_minibatch_size=32768),
+                                      device=dev)
+    ts_lt = init_lt(0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, t_lt = synced(lambda: train_lt(ts_lt))
+    by_kernel = sorted(((dev_time(e), e.count, e.key) for e in prof.key_averages()
+                        if dev_time(e) > 0), reverse=True)
+    busy_us = sum(us for us, _, _ in by_kernel)
+    top = "; ".join(f"{k[:48]} x{n} {us / 1e3:.1f}ms" for us, n, k in by_kernel[:8])
+    log(f"[15b LSTM trace] {time.perf_counter() - t0:.2f}s one iteration 2048x{MAX_SEQ_LEN}, 2 "
+        f"Adam steps of {mb_chunks} chunks: wall {t_lt * 1e3:.1f}ms device busy "
+        f"{busy_us / 1e3:.1f}ms (idle {1 - busy_us / 1e6 / t_lt:.1%}); top: {top}")
+
+    t0 = time.perf_counter()
+    init_lp, train_lp = make_ppo_lstm(
+        specs64, PPOConfig(num_envs=2048, sgd_minibatch_size=32768, num_sgd_iter=1), device=dev)
+    reset_counts()
+    (_, m_lp), t_lp = synced(lambda: train_lp(init_lp(0)))
+    lp_counts = counts()
+    b3_lstm_launches = lp_counts[2]
+    if lp_counts != (0, 0, 400, 0) or not all(np.isfinite(v.item()) for v in m_lp):
+        raise SystemExit(f"the pool LSTM iteration launched B1/B2/B3/B4 {lp_counts} times or "
+                         "its metrics are not finite")
+    log(f"[15c pool LSTM learner] {time.perf_counter() - t0:.2f}s train_iteration 64-layout "
+        f"pool 2048x400, 1 epoch: wall {t_lp:.3f}s = {2048 * 400 / t_lp:.0f} env-steps/s; "
+        f"B1/B2/B3/B4 launches={lp_counts}; shaped={m_lp.episode_shaped_reward.item():.3f}")
+
+    # a small iteration on the card and on the CPU from the same params, with
+    # the same actions and chunk permutations: the rollout's integers bit for
+    # bit, losses within rtol 1e-4 / atol 1e-6 and params within 1e-5, the
+    # tolerances the CPU learner is held to against JAX
+    t0 = time.perf_counter()
+    cfg_sl = PPOConfig(num_envs=32, horizon=40, num_sgd_iter=2, sgd_minibatch_size=640)
+    sl_acts = np.random.RandomState(18).choice(6, size=(40, 64), p=PROB)
+    sl_perms = [np.random.RandomState(200 + e).permutation(2 * 32 * 40 // MAX_SEQ_LEN)
+                for e in range(2)]
+    small = {}
+    for d in (dev, cpu):
+        init_s, train_s = make_ppo_lstm(spec, cfg_sl, device=d)
+        kept = {}
+        ts_s, m_s = train_s(init_s(3),
+                            sample_fn=lambda _lg, t, d=d: torch.from_numpy(sl_acts[t]).to(d),
+                            perm_fn=lambda e, d=d: torch.from_numpy(sl_perms[e]).to(d),
+                            on_phase=kept.setdefault)
+        small[d.type] = (ts_s, m_s, kept["rollout"])
+    (ts_c, m_c, ro_c), (ts_h, m_h, ro_h) = small["cuda"], small["cpu"]
+    fields = ("obs", "action", "sparse", "shaped", "events")
+    sl_int_err = max_err([getattr(ro_c, f).cpu() for f in fields],
+                         [getattr(ro_h, f) for f in fields])
+    losses = [(getattr(m_c, f).item(), getattr(m_h, f).item())
+              for f in ("policy_loss", "vf_loss", "kl", "entropy", "episode_total_reward")]
+    sl_loss_ok = all(abs(a - b) <= 1e-6 + 1e-4 * abs(b) for a, b in losses)
+    sl_param_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        ts_c.net.state_dict().values(), ts_h.net.state_dict().values()))
+    log(f"[15d card vs CPU] {time.perf_counter() - t0:.2f}s LSTM train_iteration 32x40, 2 "
+        f"epochs of 2 minibatches of 64 chunks, same params, actions and permutations: rollout "
+        f"integers max_abs_err={sl_int_err}, losses max_abs_err "
+        f"{max(abs(a - b) for a, b in losses):.3g}, params max_abs_err {sl_param_err:.3g}; "
+        f"shaped={m_c.episode_shaped_reward.item()}")
+    if sl_int_err or not sl_loss_ok or sl_param_err > 1e-5:
+        raise SystemExit("the LSTM learner on the card disagrees with the CPU learner")
+
+    # the eval, 8 games x 400 (B1 at 8 envs), the carry through the episode
+    t0 = time.perf_counter()
+    eval_l = make_ppo_lstm_eval(spec, NetConfig(), num_games=8, horizon=400, device=dev)
+    reset_counts()
+    mean_l, t_eval_l = synced(lambda: eval_l(ts_l.net, gen))
+    b1_eval_lstm = counts()[0]
+    if b1_eval_lstm != 400 or not mean_l >= 0:
+        raise SystemExit(f"make_ppo_lstm_eval launched B1 {b1_eval_lstm} times, mean {mean_l}")
+    log(f"[15e LSTM eval] {time.perf_counter() - t0:.2f}s make_ppo_lstm_eval 8x400: "
+        f"{t_eval_l:.3f}s mean_sparse={mean_l}, B1 launches={b1_eval_lstm}")
+
+    # the --use-lstm CLIs in process, and the LSTM checkpoint as a ppo: agent
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()) as out:
+        run = os.path.join(tmp, "lstm")
+        cli = ["--device", "cuda", "--local-testing", "--use-lstm", "--num-sgd-iter", "1",
+               "--out", run]
+        train_ppo.main(cli + ["--iters", "1"])
+        train_ppo.main(cli + ["--iters", "1", "--resume"])
+        with open(os.path.join(run, "config.json")) as f:
+            lstm_meta = json.load(f)
+        pool_run = os.path.join(tmp, "lstm_pool")
+        train_ppo_from_params.main(["--device", "cuda", "--local-testing", "--use-lstm",
+                                    "--iters", "2", "--out", pool_run])
+        with open(os.path.join(pool_run, "config.json")) as f:
+            lstm_pool_meta = json.load(f)
+        matrix_l = eval_matrix.main(["--device", "cuda", "--layouts", "cramped_room",
+                                     "--agents", f"ppo:{run}", "greedy", "--games", "2",
+                                     "--horizon", "50", "--out", os.path.join(tmp, "m.json")])
+    log(f"[15f CLIs] {time.perf_counter() - t0:.2f}s train_ppo --use-lstm --local-testing 1 "
+        f"iter then --resume 1: latest_step={lstm_meta['latest_step']}, use_lstm="
+        f"{lstm_meta['use_lstm']}; train_ppo_from_params --use-lstm 2 iters: latest_step="
+        f"{lstm_pool_meta['latest_step']}; eval_matrix ppo:<the LSTM run> + greedy (2 games x "
+        f"50 steps): {len(matrix_l)} pairs; {len(out.getvalue().splitlines())} lines of their "
+        f"output")
+    if (lstm_meta["latest_step"], lstm_meta["use_lstm"], lstm_pool_meta["latest_step"],
+            lstm_pool_meta["use_lstm"], len(matrix_l)) != (2, True, 2, True, 4):
+        raise SystemExit("the --use-lstm CLIs did not train, resume, checkpoint or evaluate")
+    log(f"[15 recurrent learner] {time.perf_counter() - t15:.2f}s")
+
     table = {"kernels": [
         {"name": "fused_train_step (B1)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_train.cu",
@@ -1334,6 +1530,7 @@ def main() -> int:
          "agent_pair_plain_ms": b1_time[1024][1], "agent_pair_bound_ms": b1_time[1024][2],
          "train_rollout_random_launches": trr_launches,
          "ppo_bc_phi_launches": b1_bc_launches, "bc_eval_launches": b1_eval_bc,
+         "lstm_launches": b1_lstm_launches, "lstm_eval_launches": b1_eval_lstm,
          "eval_ms": b1_time[8][0],
          "eval_plain_ms": b1_time[8][1], "eval_bound_ms": b1_time[8][2],
          "tile_envs": fused_train.TILE_ENVS, "block_threads": fused_train.BLOCK_THREADS,
@@ -1353,7 +1550,8 @@ def main() -> int:
          "replaces": "overcooked_ai_tpu/ops/fused_pool.py:513", "launches": b3_iter_launches,
          "max_abs_err": b3_err, "ms": b3_ms, "plain_ms": b3_plain_ms,
          "bound_ms": b3_bound_ms, "bound_by": "bytes", "library_ms": None,
-         "collect_launches": b3_launches, "ppo_bc_phi_launches": b3_bc_launches},
+         "collect_launches": b3_launches, "ppo_bc_phi_launches": b3_bc_launches,
+         "lstm_launches": b3_lstm_launches},
         {"name": "fused_pool_rollout (B4)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_pool_rollout.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_pool.py:286", "launches": b4_launches,

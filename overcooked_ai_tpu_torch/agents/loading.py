@@ -5,10 +5,11 @@
 kinds: greedy | boltzmann | random | stay | ppo:<ckpt_dir> | bc:<model_dir>.
 A `ppo:` directory holds the port's own checkpoints (`training/checkpoint.py`:
 config.json and step_{n}.pt); the JAX package's orbax checkpoints need JAX
-to read and are not read here. A `bc:` directory is the port's BC model or
-the JAX package's (`training/bc.load_bc_model` reads both), played as a
-stateless agent. A recurrent (`use_lstm`) checkpoint raises until the LSTM
-learner's port (ROADMAP A.8). Shared by the eval CLIs (`cli/eval_matrix.py`, `cli/eval_pool.py`).
+to read and are not read here. A recurrent (`use_lstm`) checkpoint plays as
+a stateful agent whose carry is the LSTM's (c, h), one row per game. A
+`bc:` directory is the port's BC model or the JAX package's
+(`training/bc.load_bc_model` reads both), played as a stateless agent.
+Shared by the eval CLIs (`cli/eval_matrix.py`, `cli/eval_pool.py`).
 """
 
 from __future__ import annotations
@@ -43,23 +44,46 @@ class PPOPolicy:
         self.net = net
         self.horizon = horizon
 
-    def logits(self, state, obs, agent_index: int) -> torch.Tensor:
-        """(B, 6) logits from obs (P, 26, HW, B) int8."""
+    def net_input(self, state, obs, agent_index: int) -> torch.Tensor:
+        """The net's (B, H, W, 26) int8 input from obs (P, 26, HW, B) int8."""
         H, W, B = state.obj.shape
         x = torch.empty((B, H, W, NUM_LAYERS), dtype=torch.int8, device=obs.device)
         x.view(B, H * W, NUM_LAYERS).copy_(obs[agent_index].permute(2, 1, 0))
         x[..., NUM_LAYERS - 1] = (self.horizon - state.t < URGENCY_WINDOW).to(torch.int8)[
             :, None, None]
-        return self.net(x)[0]
+        return x
+
+    def logits(self, state, obs, agent_index: int) -> torch.Tensor:
+        """(B, 6) logits from obs (P, 26, HW, B) int8."""
+        return self.net(self.net_input(state, obs, agent_index))[0]
 
     def __call__(self, draws, layout, state, agent_index, carry, obs):
         logits = self.logits(state, obs, agent_index)
         return torch.argmax(logits + draws.gumbel("policy", (NUM_ACTIONS,)).T, -1), carry
 
 
+class LSTMPolicy(PPOPolicy):
+    """An `LSTMPPONet` acting as `PPOPolicy` does, one step of its cell a
+    call; its carry is (c, h), (B, cell_size) each."""
+
+    def __call__(self, draws, layout, state, agent_index, carry, obs):
+        logits, _, carry = self.net.step(self.net_input(state, obs, agent_index), carry)
+        return torch.argmax(logits + draws.gumbel("policy", (NUM_ACTIONS,)).T, -1), carry
+
+    def init_carry(self, batch: int, device):
+        return self.net.initial_carry(batch, device)
+
+
 def ppo_agent_fn(net, horizon: int = 400) -> AgentFn:
     """AgentFn of a PPONet encoded at `horizon` (see `PPOPolicy`)."""
     return AgentFn(policy=PPOPolicy(net, horizon), needs_obs=True)
+
+
+def lstm_agent_fn(net, horizon: int = 400) -> AgentFn:
+    """The stateful AgentFn of an LSTMPPONet encoded at `horizon`, its
+    carry seeded with zeros (see `LSTMPolicy`)."""
+    policy = LSTMPolicy(net, horizon)
+    return AgentFn(policy=policy, init_carry=policy.init_carry, stateful=True, needs_obs=True)
 
 
 def build_agent(kind: str, spec, tables, device="cuda") -> AgentFn:
@@ -92,11 +116,9 @@ def build_agent(kind: str, spec, tables, device="cuda") -> AgentFn:
         ckpt_dir = kind[4:]
         with open(os.path.join(ckpt_dir, "config.json")) as f:
             meta = json.load(f)
-        if meta.get("use_lstm"):
-            raise ValueError(f"{kind}: recurrent checkpoints need the LSTM learner's port "
-                             "(ROADMAP A.8)")
         net = load_policy_net(ckpt_dir, spec.height, spec.width, device)
         # encode with the horizon the checkpoint trained at, or the urgency
         # layer (horizon - t < 40) shifts when the run's horizon differs
-        return ppo_agent_fn(net, int(meta["config"].get("horizon", 400)))
+        agent_fn = lstm_agent_fn if meta.get("use_lstm") else ppo_agent_fn
+        return agent_fn(net, int(meta["config"].get("horizon", 400)))
     raise ValueError(f"unknown agent kind {kind}")

@@ -6,6 +6,7 @@ Examples:
     python -m overcooked_ai_tpu_torch.cli.train_ppo --local-testing --device cpu
     python -m overcooked_ai_tpu_torch.cli.train_ppo --bc-model runs/r4_bc/bc_proxy_cramped_room \
         --bc-schedule 0:0.5 --use-phi --phi-event-mix
+    python -m overcooked_ai_tpu_torch.cli.train_ppo --use-lstm --local-testing --device cpu
 
 Defaults mirror the reference production config: 30 envs x 400-step
 episodes (train batch 12000), lr 5e-5, entropy 0.2 -> 0.1 over 3e5 steps,
@@ -18,6 +19,10 @@ PPO_BC: `--bc-model <dir>` (the port's BC directory or the JAX package's)
 is the partner, scheduled by `--bc-schedule`; it also plays seat 1 of the
 periodic evaluation. `--use-phi` shapes with the potential phi, plus the
 event shaping under `--phi-event-mix`.
+
+`--use-lstm` trains the recurrent learner (`training/ppo_lstm.py`), whose
+phi reward has no event mix and whose evaluation has no BC seat, as in the
+JAX package; its checkpoints say `use_lstm` in config.json.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ def parse_args(argv=None):
                     help="SGD minibatch size in env steps (reference 2000)")
     ap.add_argument("--num-sgd-iter", type=int, default=None,
                     help="SGD epochs per iteration (reference 8)")
+    ap.add_argument("--use-lstm", action="store_true",
+                    help="the recurrent learner (LSTMPPONet, truncated BPTT over 20-step chunks)")
     ap.add_argument("--old-dynamics", action="store_true")
     ap.add_argument("--out", default=None,
                     help="run directory (default runs_torch/ppo_<layout>_shaped, or _phi)")
@@ -163,7 +170,12 @@ def main(argv=None):
     out_dir = args.out or f"runs_torch/ppo_{args.layout}_{shaping}"
     os.makedirs(out_dir, exist_ok=True)
     log = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
-    init_fn, train_it = make_ppo(spec, config, potential_fn, bc_policy, device=device)
+    if args.use_lstm:
+        from overcooked_ai_tpu_torch.training.ppo_lstm import make_ppo_lstm, make_ppo_lstm_eval
+
+        init_fn, train_it = make_ppo_lstm(spec, config, bc_policy, potential_fn, device=device)
+    else:
+        init_fn, train_it = make_ppo(spec, config, potential_fn, bc_policy, device=device)
     ts = init_fn(args.seed)
     start_iter = 0
     if args.resume:
@@ -173,10 +185,12 @@ def main(argv=None):
     print(f"training {args.layout} ({shaping}) on {device} for {args.iters} iters x "
           f"{config.train_batch_size} env steps", flush=True)
     eval_fn = None
-    if args.eval_interval:
+    if args.eval_interval and args.use_lstm:
+        eval_fn = make_ppo_lstm_eval(spec, config.net, num_games=args.eval_games, device=device)
+    elif args.eval_interval:
         eval_fn = make_ppo_eval(spec, num_games=args.eval_games, device=device,
                                 bc_policy=bc_policy)
-    extra = {"use_lstm": False, "layout": args.layout}
+    extra = {"use_lstm": args.use_lstm, "layout": args.layout}
 
     t_start = time.time()
     t_post_compile = None  # set after iter 1 (the first call builds the kernels)

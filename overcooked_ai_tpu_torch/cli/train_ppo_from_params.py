@@ -8,11 +8,14 @@ regeneration (num_mdp=inf). With `--regen-every N` the host regenerates the
 whole pool every N iterations, so no layout repeats across the run.
 `--use-phi` shapes with each lane's potential phi
 (`core/potential.make_potential_fn_pool`), whose tables belong to the
-fixed pool: it refuses `--regen-every`.
+fixed pool: it refuses `--regen-every`. `--use-lstm` trains the recurrent
+learner (`training/ppo_lstm.py`) on a fixed pool, without phi, as the JAX
+CLI does.
 
 Examples:
     python -m overcooked_ai_tpu_torch.cli.train_ppo_from_params --iters 400 --pool-size 64
     python -m overcooked_ai_tpu_torch.cli.train_ppo_from_params --local-testing --device cpu
+    python -m overcooked_ai_tpu_torch.cli.train_ppo_from_params --use-lstm --local-testing
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ def parse_args(argv=None):
                     "(0 = a fixed pool)")
     ap.add_argument("--use-phi", action="store_true",
                     help="dense reward = phi(s') - phi(s) per lane (a fixed pool only)")
+    ap.add_argument("--use-lstm", action="store_true",
+                    help="the recurrent learner (a fixed pool, no phi)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="run directory (default runs_torch/ppo_from_params)")
@@ -60,8 +65,11 @@ def parse_args(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu")
     args = ap.parse_args(argv)
-    if args.regen_every and args.use_phi:
-        ap.error("--regen-every requires plain PPO: phi's pool tables are built for a fixed pool")
+    if args.regen_every and (args.use_phi or args.use_lstm):
+        ap.error("--regen-every requires plain PPO (phi/lstm pool tables are precomputed for a "
+                 "fixed pool)")
+    if args.use_lstm and args.use_phi:
+        ap.error("lstm+phi combination not wired yet")
     return args
 
 
@@ -99,7 +107,12 @@ def main(argv=None):
         from overcooked_ai_tpu_torch.core.potential import make_potential_fn_pool
 
         potential_fn = make_potential_fn_pool(specs)
-    init_fn, train_it = make_ppo(specs, config, potential_fn, device=device)
+    if args.use_lstm:
+        from overcooked_ai_tpu_torch.training.ppo_lstm import make_ppo_lstm
+
+        init_fn, train_it = make_ppo_lstm(specs, config, device=device)
+    else:
+        init_fn, train_it = make_ppo(specs, config, potential_fn, device=device)
     ts = init_fn(args.seed)
     start_iter = 0
     if args.resume:
@@ -115,14 +128,14 @@ def main(argv=None):
             if args.regen_every and (it - start_iter - 1) % args.regen_every == 0:
                 fresh_pool = stack_layouts([gen.generate_spec(name=f"gen_{it}_{i}")
                                             for i in range(args.pool_size)])
-            ts, m = train_it(ts, fresh_pool)
+            ts, m = train_it(ts) if fresh_pool is None else train_it(ts, pool=fresh_pool)
             log.log(it, m)
             if it % 10 == 0 or it == start_iter + 1:
                 print(f"iter {it}: sparse={m.episode_sparse_reward.item():.1f} "
                       f"shaped={m.episode_shaped_reward.item():.1f} kl={m.kl.item():.4f} "
                       f"ent={m.entropy.item():.3f} ({time.time() - t0:.2f}s/iter)", flush=True)
             if it % args.save_freq == 0 or it == last_iter:
-                save_checkpoint(out_dir, ts, config, step=it)
+                save_checkpoint(out_dir, ts, config, step=it, extra={"use_lstm": args.use_lstm})
     finally:
         log.close()
     print(f"done in {time.time() - t_start:.0f}s -> {out_dir}", flush=True)

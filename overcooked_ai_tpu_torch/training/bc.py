@@ -14,8 +14,10 @@ that `torch.load` reads with `weights_only=True`; `load_bc_model` also
 reads the JAX package's `params.msgpack` (`training/_msgpack.py`), so the
 committed proxies under `runs/` load as they are.
 
-The recurrent BC net (`BCLSTMNet`, `train_bc_lstm`) waits for the recurrent
-learner's port (ROADMAP A.8): `use_lstm=True` raises.
+The recurrent BC net (`BCLSTMNet`: the MLP torso per timestep, an LSTM of
+`cell_size`, the logits) trains on padded per-agent sequences
+(`train_bc_lstm`); `train_bc_model` and `load_bc_model` refuse
+`use_lstm`, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -31,8 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from overcooked_ai_tpu_torch.core.featurize import cost_rows, featurize_batch
-
-_LSTM = "the LSTM BC net comes with the recurrent learner's port (ROADMAP A.8)"
+from overcooked_ai_tpu_torch.training.networks import LSTMCell, lecun_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,22 +59,12 @@ class BCNet(nn.Module):
 
     def __init__(self, cfg: BCConfig, obs_dim: int, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.use_lstm:
-            raise ValueError(_LSTM)
         self.cfg = cfg
         generator = generator or torch.Generator().manual_seed(0)
         dims = [obs_dim, *cfg.net_arch]
-
-        def dense(n_in, n_out):
-            layer = nn.utils.skip_init(nn.Linear, n_in, n_out)
-            std = (1.0 / n_in) ** 0.5 / 0.87962566103423978  # truncated at 2 std
-            nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
-            nn.init.zeros_(layer.bias)
-            return layer
-
-        self.hidden = nn.ModuleList(dense(a, b) for a, b in zip(dims[:-1], dims[1:]))
-        self.logits = dense(dims[-1], cfg.num_actions)
+        self.hidden = nn.ModuleList(lecun_dense(a, b, generator)
+                                    for a, b in zip(dims[:-1], dims[1:]))
+        self.logits = lecun_dense(dims[-1], cfg.num_actions, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.hidden:
@@ -81,12 +72,43 @@ class BCNet(nn.Module):
         return self.logits(x)
 
 
+class BCLSTMNet(nn.Module):
+    """The recurrent BC net (reference _build_lstm_model): Linear + ReLU per
+    `net_arch` entry on each timestep, an LSTM of `cfg.cell_size`
+    (`networks.LSTMCell`, carry (c, h)), then a Linear to the logits. Init
+    as flax's (LeCun-normal dense kernels; the cell's), drawn on the CPU
+    from `generator`."""
+
+    def __init__(self, cfg: BCConfig, obs_dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        generator = generator or torch.Generator().manual_seed(0)
+        dims = [obs_dim, *cfg.net_arch]
+        self.hidden = nn.ModuleList(lecun_dense(a, b, generator)
+                                    for a, b in zip(dims[:-1], dims[1:]))
+        self.lstm = LSTMCell(dims[-1], cfg.cell_size, generator)
+        self.logits = lecun_dense(cfg.cell_size, cfg.num_actions, generator)
+
+    def forward(self, x_seq: torch.Tensor, carry=None):
+        """x_seq (N, T, F) -> (logits (N, T, A), the final carry); `carry`
+        None starts from zeros."""
+        x = x_seq
+        for layer in self.hidden:
+            x = F.relu(layer(x))
+        if carry is None:
+            carry = self.lstm.initial_carry(x.shape[0], x.device)
+        hs, carry = self.lstm(x, carry)
+        return self.logits(hs), carry
+
+
 def _obs_dim(params: dict) -> int:
-    return int((params["hidden.0.weight"] if "hidden.0.weight" in params
-                else params["logits.weight"]).shape[1])
+    for first in ("hidden.0.weight", "lstm.weight_ih", "logits.weight"):
+        if first in params:
+            return int(params[first].shape[1])
+    raise ValueError(f"not the params of a BC net: {sorted(params)}")
 
 
-def bc_net(params: dict, cfg: BCConfig, device="cpu") -> BCNet:
+def bc_net(params: dict, cfg: BCConfig, device="cuda") -> BCNet:
     """A BCNet holding `params` (a state dict), in eval mode on `device`."""
     net = BCNet(cfg, _obs_dim(params))
     net.load_state_dict(params)
@@ -107,7 +129,7 @@ def train_bc_model(obs: np.ndarray, actions: np.ndarray, cfg: BCConfig = BCConfi
     epochs without one.
     """
     if cfg.use_lstm:
-        raise ValueError(_LSTM)
+        raise ValueError("LSTM BC: use train_bc_lstm")
     n = obs.shape[0]
     rng = np.random.RandomState(seed)
     perm = rng.permutation(n)
@@ -171,6 +193,63 @@ def train_bc_model(obs: np.ndarray, actions: np.ndarray, cfg: BCConfig = BCConfi
     return best_params, history
 
 
+def train_bc_lstm(sequences, cfg: BCConfig = BCConfig(use_lstm=True), seed: int = 0,
+                  verbose: bool = False, init_params: Optional[dict] = None, device="cuda"):
+    """Train the recurrent BC net on variable-length per-agent sequences,
+    a list of (obs (T_i, F) float32, actions (T_i,) int). Returns (the last
+    params, as a CPU state dict; {"loss": the mean minibatch loss of each
+    epoch}).
+
+    The sequences are padded with zeros to the longest, and the padding is
+    masked out of the cross-entropy (the sum over real steps over their
+    count). `cfg.epochs` epochs of Adam steps over minibatches of
+    `min(cfg.batch_size, n)` sequences, each epoch's order from
+    `np.random.RandomState(seed)`, the last minibatch possibly short. The
+    net starts from `init_params` (a state dict) or from a generator
+    seeded `seed`.
+    """
+    if not sequences:
+        raise ValueError("train_bc_lstm needs at least one sequence")
+    max_len = max(o.shape[0] for o, _ in sequences)
+    feat = sequences[0][0].shape[1]
+    n = len(sequences)
+    obs = np.zeros((n, max_len, feat), np.float32)
+    act = np.zeros((n, max_len), np.int64)
+    mask = np.zeros((n, max_len), np.float32)
+    for i, (o, a) in enumerate(sequences):
+        obs[i, :len(a)] = o
+        act[i, :len(a)] = a
+        mask[i, :len(a)] = 1.0
+
+    device = torch.device(device)
+    x, y, m = (torch.as_tensor(v, device=device) for v in (obs, act, mask))
+    net = BCLSTMNet(cfg, feat, torch.Generator().manual_seed(seed))
+    if init_params is not None:
+        net.load_state_dict(init_params)
+    net = net.to(device)
+    opt = torch.optim.Adam(net.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    rng = np.random.RandomState(seed)
+    bs = max(min(cfg.batch_size, n), 1)
+    history = {"loss": []}
+    for epoch in range(cfg.epochs):
+        perm = torch.as_tensor(rng.permutation(n), device=device)
+        losses = []
+        for s in range(0, n, bs):
+            idx = perm[s:s + bs]
+            logits, _ = net(x[idx])
+            ce = F.cross_entropy(logits.flatten(0, 1), y[idx].flatten(), reduction="none")
+            bm = m[idx].flatten()
+            loss = (ce * bm).sum() / torch.clamp(bm.sum(), min=1.0)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        history["loss"].append(float(torch.stack(losses).double().sum().item()) / len(losses))
+        if verbose:
+            print(f"epoch {epoch}: loss {history['loss'][-1]:.4f}")
+    return {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}, history
+
+
 def save_bc_model(model_dir, params: dict, cfg: BCConfig, metadata=None):
     """Write `params.pt` (the state dict) and `metadata.json` (the config,
     `obs_dim`, and `metadata`)."""
@@ -194,7 +273,8 @@ def load_bc_model(model_dir):
     cfg = BCConfig(**{k: (tuple(v) if k == "net_arch" else v) for k, v in meta.items()
                       if k in names})
     if cfg.use_lstm:
-        raise ValueError(f"{model_dir}: {_LSTM}")
+        raise ValueError(f"{model_dir}: a recurrent BC model (use_lstm) has no loader, as in "
+                         "the JAX package; train_bc_lstm returns its params")
     pt = os.path.join(model_dir, "params.pt")
     if os.path.exists(pt):
         return torch.load(pt, map_location="cpu", weights_only=True), cfg

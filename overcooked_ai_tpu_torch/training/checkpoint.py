@@ -47,11 +47,13 @@ def latest_step(ckpt_dir):
 
 
 def load_policy_net(ckpt_dir, height: int, width: int, device="cuda"):
-    """The `PPONet` of a checkpoint's latest step alone, in eval mode on
-    `device`, for a layout of `height` x `width` (an agent; no optimiser). A
+    """The policy net of a checkpoint's latest step alone, in eval mode on
+    `device`, for a layout of `height` x `width` (an agent; no optimiser):
+    an `LSTMPPONet` when config.json says `use_lstm`, else a `PPONet`. A
     directory without the port's `step_{n}.pt` (a JAX orbax checkpoint, say)
-    raises ValueError."""
-    from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
+    raises ValueError, and so does a net that is not of the kind config.json
+    names."""
+    from overcooked_ai_tpu_torch.training.networks import LSTMPPONet, NetConfig, PPONet
 
     ckpt_dir = os.path.abspath(ckpt_dir)
     with open(os.path.join(ckpt_dir, "config.json")) as f:
@@ -61,15 +63,21 @@ def load_policy_net(ckpt_dir, height: int, width: int, device="cuda"):
     if not os.path.exists(path):
         raise ValueError(f"{ckpt_dir} holds no torch checkpoint step_{step}.pt (the port "
                          "does not read the JAX package's orbax checkpoints)")
-    net = PPONet(NetConfig(**meta["config"]["net"]), height, width)
-    net.load_state_dict(torch.load(path, map_location="cpu", weights_only=True)["net"])
+    kind = LSTMPPONet if meta.get("use_lstm") else PPONet
+    net = kind(NetConfig(**meta["config"]["net"]), height, width)
+    saved = torch.load(path, map_location="cpu", weights_only=True)["net"]
+    if saved.keys() != net.state_dict().keys():
+        raise ValueError(f"{path} does not hold {kind.__name__} params (config.json "
+                         f"has use_lstm={bool(meta.get('use_lstm'))})")
+    net.load_state_dict(saved)
     return net.to(device).eval()
 
 
 def restore_checkpoint(ckpt_dir, ts_template: TrainState, step=None):
     """Load a checkpoint of save_checkpoint into `ts_template` (a TrainState
-    from make_ppo's init_fn for the same layout and config: its net, its
-    Adam and its generator take the saved state). Returns (ts, step)."""
+    from make_ppo's or make_ppo_lstm's init_fn for the same layout and
+    config: its net, its Adam and its generator take the saved state).
+    Returns (ts, step)."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)

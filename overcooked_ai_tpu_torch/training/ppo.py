@@ -153,14 +153,16 @@ def _sampler(sample_fn, t: int, generator):
 
 
 @torch.no_grad()
-def collect_rollout(spec, net: PPONet, config: PPOConfig,
+def collect_rollout(spec, net, config: PPOConfig,
                     generator: Optional[torch.Generator] = None, device="cuda",
                     sample_fn: Optional[SampleFn] = None, pool: Optional[Layout] = None,
                     pool_idx: Optional[torch.Tensor] = None,
                     shaping_factor=1.0, potential_fn=None, bc_policy=None, bc_factor=0.0,
                     bc_draws=None, bc_sample_fn: Optional[SampleFn] = None) -> Rollout:
     """Self-play one episode of `config.horizon` steps in `config.num_envs`
-    envs under `net`.
+    envs under `net`: a `PPONet`, or any callable (N, H, W, 26) obs ->
+    (logits, value) with the net's `cfg` (the recurrent learner's, which
+    threads its carry).
 
     shaping_factor: a float or a 0-d float32 tensor, the weight of the
     dense reward in `Rollout.reward`: the event shaping, or with
@@ -358,6 +360,15 @@ def _bc_factor_at(schedule, t):
     return factor
 
 
+def schedules(config: PPOConfig, env_steps):
+    """The iteration's (shaping factor, entropy coefficient, bc_factor), each
+    annealed by the env steps taken so far."""
+    return (_anneal(config.reward_shaping_factor, env_steps, config.reward_shaping_horizon),
+            _anneal(config.entropy_coeff_start, env_steps, config.entropy_coeff_horizon,
+                    config.entropy_coeff_end),
+            _bc_factor_at(config.bc_schedule, env_steps))
+
+
 def gae(reward: torch.Tensor, value: torch.Tensor, gamma: float, lmbda: float):
     """GAE(lambda) over (T, N) with the episode terminal at the horizon (no
     bootstrap). Returns (advantages, value targets)."""
@@ -378,12 +389,13 @@ def standardize(adv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (adv - mean) / (std + 1e-8)
 
 
-def loss_fn(net: PPONet, batch, kl_coeff, entropy_coeff, config: PPOConfig):
-    """The PPO loss of one minibatch: clipped surrogate, KL(old || new) from
-    the stored logits, entropy bonus, clipped value loss, all masked means.
+def ppo_loss(logits, value, batch, kl_coeff, entropy_coeff, config: PPOConfig):
+    """The PPO loss of one minibatch from the net's (n, A) logits and (n,)
+    values on it: clipped surrogate, KL(old || new) from the stored logits,
+    entropy bonus, clipped value loss, all masked means. `batch` is
+    (action, logp_old, logits_old, value_old, adv, vt, mask).
     Returns (total, (policy_loss, vf_loss, kl, entropy))."""
-    obs, action, logp_old, logits_old, value_old, adv, vt, mask = batch
-    logits, value = net(obs)
+    action, logp_old, logits_old, value_old, adv, vt, mask = batch
     m_sum = torch.clamp(mask.sum(), min=1.0)
 
     def wmean(x):
@@ -409,6 +421,13 @@ def loss_fn(net: PPONet, batch, kl_coeff, entropy_coeff, config: PPOConfig):
     return total, (policy_loss, vf_loss, kl, entropy)
 
 
+def loss_fn(net: PPONet, batch, kl_coeff, entropy_coeff, config: PPOConfig):
+    """`ppo_loss` of the feed-forward net on a minibatch (obs, action,
+    logp_old, logits_old, value_old, adv, vt, mask)."""
+    logits, value = net(batch[0])
+    return ppo_loss(logits, value, batch[1:], kl_coeff, entropy_coeff, config)
+
+
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax's `clip_by_global_norm`, in place and without a host sync: when
     the global norm g of `grads` reaches max_norm, each becomes
@@ -419,6 +438,42 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torc
     torch._foreach_div_(grads, torch.where(clip, g_norm, 1.0))
     torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
     return g_norm
+
+
+def sgd_step(ts, total: torch.Tensor, params, config: PPOConfig) -> None:
+    """One Adam step on `total`, its gradient clipped by the global norm."""
+    ts.opt.zero_grad(set_to_none=True)
+    total.backward()
+    clip_by_global_norm_([p.grad for p in params], config.grad_clip)
+    ts.opt.step()
+
+
+def finish_iteration(ts, ro: Rollout, aux, config: PPOConfig, shaping_factor, entropy_coeff,
+                     bc_factor):
+    """The adaptive KL coefficient (rllib update_kl, from the last
+    minibatch's KL) and the iteration's metrics: (ts with the new counters,
+    IterMetrics)."""
+    policy_loss, vf_loss, kl, entropy = (a.detach() for a in aux)
+    kl_coeff = torch.where(
+        kl > 2.0 * config.kl_target, ts.kl_coeff * 1.5,
+        torch.where(kl < 0.5 * config.kl_target, ts.kl_coeff * 0.5, ts.kl_coeff),
+    )
+    B = config.num_envs
+    metrics = IterMetrics(
+        episode_sparse_reward=ro.sparse.sum() / B,
+        episode_shaped_reward=ro.shaped.sum() / B,
+        episode_total_reward=ro.reward.sum() / B,
+        policy_loss=policy_loss,
+        vf_loss=vf_loss,
+        kl=kl,
+        entropy=entropy,
+        kl_coeff=kl_coeff,
+        reward_shaping_factor=shaping_factor,
+        entropy_coeff=entropy_coeff,
+        bc_factor=bc_factor,
+        bc_sample_fraction=(1.0 - ro.mask).mean(),
+    )
+    return ts._replace(env_steps=ts.env_steps + B * config.horizon, kl_coeff=kl_coeff), metrics
 
 
 PhaseFn = Callable[[str, object], None]  # (phase, its output) after each phase
@@ -487,11 +542,7 @@ def make_ppo(spec, config: PPOConfig, potential_fn=None, bc_policy=None, mesh=No
         if pool is not None and (config.use_phi or bc_policy is not None):
             raise ValueError("a regenerated pool with use_phi or a BC partner: their per-lane "
                              "tables are built for the pool make_ppo was given")
-        shaping_factor = _anneal(config.reward_shaping_factor, ts.env_steps,
-                                 config.reward_shaping_horizon)
-        entropy_coeff = _anneal(config.entropy_coeff_start, ts.env_steps,
-                                config.entropy_coeff_horizon, config.entropy_coeff_end)
-        bc_factor = _bc_factor_at(config.bc_schedule, ts.env_steps)
+        shaping_factor, entropy_coeff, bc_factor = schedules(config, ts.env_steps)
         ro = collect_rollout(spec, ts.net, config, ts.generator, device, sample_fn, pool,
                              pool_idx, shaping_factor, potential_fn, bc_policy, bc_factor,
                              bc_draws, bc_sample_fn)
@@ -517,32 +568,8 @@ def make_ppo(spec, config: PPOConfig, potential_fn=None, bc_policy=None, mesh=No
                 idx = perm[i * mb_size:(i + 1) * mb_size]
                 total, aux = loss_fn(ts.net, tuple(d[idx] for d in data), ts.kl_coeff,
                                      entropy_coeff, config)
-                ts.opt.zero_grad(set_to_none=True)
-                total.backward()
-                clip_by_global_norm_([p.grad for p in params], config.grad_clip)
-                ts.opt.step()
-        policy_loss, vf_loss, kl, entropy = (a.detach() for a in aux)
-
-        # the adaptive KL coefficient (rllib update_kl), from the last minibatch
-        kl_coeff = torch.where(
-            kl > 2.0 * config.kl_target, ts.kl_coeff * 1.5,
-            torch.where(kl < 0.5 * config.kl_target, ts.kl_coeff * 0.5, ts.kl_coeff),
-        )
-        metrics = IterMetrics(
-            episode_sparse_reward=ro.sparse.sum() / B,
-            episode_shaped_reward=ro.shaped.sum() / B,
-            episode_total_reward=ro.reward.sum() / B,
-            policy_loss=policy_loss,
-            vf_loss=vf_loss,
-            kl=kl,
-            entropy=entropy,
-            kl_coeff=kl_coeff,
-            reward_shaping_factor=shaping_factor,
-            entropy_coeff=entropy_coeff,
-            bc_factor=bc_factor,
-            bc_sample_fraction=(1.0 - ro.mask).mean(),
-        )
-        return ts._replace(env_steps=ts.env_steps + B * T, kl_coeff=kl_coeff), metrics
+                sgd_step(ts, total, params, config)
+        return finish_iteration(ts, ro, aux, config, shaping_factor, entropy_coeff, bc_factor)
 
     return init_fn, train_iteration
 

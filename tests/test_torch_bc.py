@@ -94,7 +94,7 @@ def test_converted_logits_match_jax_on_the_proxy_and_a_fresh_init():
     spec, fc, states = _proxy_states()
     fresh = jbc.BCNet(jcfg).init(jax.random.PRNGKey(4), jnp.zeros((1, 96)))
     for jp in (jparams, fresh):
-        net = bc.bc_net(bc_params_from_jax(jax.device_get(jp)), cfg)
+        net = bc.bc_net(bc_params_from_jax(jax.device_get(jp)), cfg, "cpu")
         for state in states:
             x = featurize_batch(spec.layout, fc, state).reshape(-1, 96)
             with torch.no_grad():
@@ -154,11 +154,15 @@ def test_save_load_round_trip_and_the_lstm_refusal(tmp_path):
             jax.random.PRNGKey(0), jnp.zeros((1, 96))), f.read())
     want = bc_params_from_jax(jax.device_get(jparams))
     assert all(torch.equal(params[k], want[k]) for k in want)
-    with pytest.raises(ValueError, match="A.8"):
-        bc.BCNet(bc.BCConfig(use_lstm=True), 96)
-    with pytest.raises(ValueError, match="A.8"):
+    # the MLP net no longer refuses the flag; the MLP trainer and the loader
+    # do, as JAX's (train_bc_lstm trains the recurrent net)
+    assert bc.BCNet(bc.BCConfig(use_lstm=True), 96).logits.in_features == 64
+    with pytest.raises(ValueError, match="use train_bc_lstm"):
         bc.train_bc_model(np.zeros((4, 96), np.float32), np.zeros(4, np.int32),
                           bc.BCConfig(use_lstm=True), device="cpu")
+    bc.save_bc_model(tmp_path / "r", params, bc.BCConfig(use_lstm=True))
+    with pytest.raises(ValueError, match="use_lstm"):
+        bc.load_bc_model(tmp_path / "r")
 
 
 def _gumbel_sample(key):
@@ -305,3 +309,15 @@ def test_rollout_to_bc_trajectories_and_featurize_match_jax():
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and g.shape == w.shape
             np.testing.assert_array_equal(g, w)
+
+
+def test_bc_net_defaults_to_the_card():
+    """`bc_net`'s device defaults to "cuda", as every entry point's does:
+    without a card the default raises, it never falls back to the CPU."""
+    params, cfg = bc.load_bc_model(CRAMPED)
+    assert bc.bc_net(params, cfg, "cpu").logits.weight.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert bc.bc_net(params, cfg).logits.weight.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            bc.bc_net(params, cfg)

@@ -286,8 +286,8 @@ def test_build_agent_kinds_that_raise(tmp_path):
     _ppo_checkpoint(lstm, spec)
     meta = json.loads((lstm / "config.json").read_text())
     (lstm / "config.json").write_text(json.dumps(dict(meta, use_lstm=True)))
-    with pytest.raises(ValueError, match="A.8"):
-        loading.build_agent(f"ppo:{lstm}", spec, tables, "cpu")
+    with pytest.raises(ValueError, match="does not hold LSTMPPONet params"):
+        loading.build_agent(f"ppo:{lstm}", spec, tables, "cpu")  # a PPONet labelled use_lstm
     orbax.mkdir()  # config.json beside no step_{n}.pt, as in a JAX run directory
     (orbax / "config.json").write_text(json.dumps(meta))
     with pytest.raises(ValueError, match="orbax"):
