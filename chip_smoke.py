@@ -83,15 +83,34 @@ Phases, one line each with its seconds:
      the CPU learner; `make_ppo_lstm_eval` at 8 x 400; `train_ppo
      --use-lstm` (then `--resume`), `train_ppo_from_params --use-lstm` and
      `eval_matrix` with the LSTM checkpoint as a `ppo:` agent, in process.
+ 16. the JAX package's trained agents and the interactive edge: (a) the 21
+     runs converted by convert_jax_checkpoints.py (`artifacts_torch/`)
+     loaded by `build_agent` on the card, their logits held against the
+     CPU's on B1's obs; (b) `eval_artifact` cells at 100 games x 400 on the
+     card (cramped_room PPO_SP+PPO_SP, PPO_BC+BC, greedy+PPO_SP; old-dynamics
+     counter_circuit_o_1order PPO_SP+PPO_SP), each mean within three
+     combined standard errors of the JAX table's, their walls and B1
+     launches; (c) the converted recurrent run in self-play at 8 x 400, its
+     first 50 steps held bit for bit against the CPU with the card's draws;
+     (d) a `DemoGame` of 400 ticks, a scripted human seat against the
+     `artifact:ppo_bc` NPC, the NPC's latency a tick against the 1/6 s tick,
+     B1 at one env (400 launches and its time a launch), the rows replayed
+     through the env on the CPU; (e) the demo server on an ephemeral port
+     answering create, action, state, join, leave and the index page.
+The kernel-against-plain holds of phases 3, 4, 6, 7, 8 and 11, and the CPU
+replays of phases 13 and 16c, are parity jobs: worker processes (one torch
+thread each, the plain versions on the CPU except at 16384 envs) started
+together after the build and collected before the first timed phase; 16a
+runs meanwhile. Each phase line gives its longest job's seconds.
 Phase 5 also times `train_rollout_random` (B1 under uniform-random play) at
 the JAX bench.py's 16384 envs x 4000 steps.
 B1's and B3's times are the profiler's device time (a timing whose session
 records no launch of its kernel is made again, and fails the run after four
 sessions with none); B2's and B4's are CUDA events' around one launch of
 the kernel alone, queued behind untimed launches.
-The line before the last is the kernel table as JSON; the last line is the
-device record. Any failure exits non-zero. Needs one CUDA card; imports
-nothing of JAX.
+The smoke's wall is on a line of its own (`[wall]`); the line before the
+last is the kernel table as JSON; the last line is the device record. Any
+failure exits non-zero. Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -105,9 +124,11 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 # INT32 outside the tensor cores: the data sheet's 67e12 float32 FLOP/s is
 # 128 lanes an SM, an FMA counted as two; a Hopper SM has 64 INT32 lanes,
@@ -136,6 +157,582 @@ def max_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
+def cpu_max_err(got, want) -> int:
+    """`max_err` with `got` on any device and `want` on the CPU."""
+    return max_err([g.cpu() for g in got], want)
+
+
+# ---- the parity jobs. Each holds kernels against their plain versions (or
+# the card against the CPU) in a worker process with one torch thread; all
+# start together after the build (phase 2), across the host's cores, and are
+# collected before the first timed phase, so that no timed phase shares the
+# host with one. The plain version runs on the CPU, where one thread runs it
+# about as fast as the card's host dispatches it, except at 16384 envs
+# (`PLAIN_ON_CARD`), where it runs on the card as in the kernels' tests.
+PLAIN_ON_CARD = 16384  # envs from which a job's plain version runs on the card
+WORKERS = 7  # the chip host's 8 cores, less the main process
+
+
+_INIT_S = None  # a worker's seconds to start: torch, the card's context, the modules
+
+
+def _worker_init():
+    """One torch thread; the card's context and the port's modules loaded
+    before the first job (the kernels' library loads at its first launch,
+    after the main process built it)."""
+    global _INIT_S
+    t0 = time.perf_counter()
+    import torch
+
+    torch.set_num_threads(1)
+    torch.ones(1, device=_card()).sum().item()
+    from overcooked_ai_tpu_torch.agents import evaluation, loading  # noqa: F401
+    from overcooked_ai_tpu_torch.ops import fused_pool  # noqa: F401
+
+    _INIT_S = time.perf_counter() - t0
+
+
+def _started():
+    return _INIT_S
+
+
+def _card():
+    import torch
+
+    return torch.device("cuda", 0)
+
+
+def _plain_device(batch):
+    import torch
+
+    return _card() if batch >= PLAIN_ON_CARD else torch.device("cpu")
+
+
+def _on(state, device):
+    from overcooked_ai_tpu_torch.core.state import State
+
+    return State(*(x.to(device) for x in state))
+
+
+def shifted(x):
+    """x as a contiguous view that starts 4 bytes past a 16-byte boundary."""
+    import torch
+
+    return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(
+        x.shape).copy_(x)
+
+
+def layout_gen(outer_shape, seed, num_players=2):  # as the JAX bench.py's pools
+    import numpy as np
+
+    from overcooked_ai_tpu_torch.core.layout_generator import LayoutGenerator
+
+    return LayoutGenerator(outer_shape=outer_shape, prop_empty=0.95, prop_feats=0.1,
+                           num_players=num_players, rng=np.random.RandomState(seed))
+
+
+def make_pool(n, seed=0, outer_shape=(5, 4), cfgs=None, **kw):
+    """n generated layouts; `cfgs`, one per layout, mixes their tables."""
+    from overcooked_ai_tpu_torch.ops import fused_pool
+
+    gen_ = layout_gen(outer_shape, seed, kw.pop("num_players", 2))
+    specs = [gen_.generate_spec(name=f"bench_{i}", **(cfgs[i] if cfgs else kw))
+             for i in range(n)]
+    check = fused_pool.check_pool_shape if cfgs else fused_pool.check_pool_uniform
+    return check(specs), specs
+
+
+def lanes_of(specs, B, seed, dev):
+    """A per-lane layout of B lanes drawn from `specs` by a generator on `dev`."""
+    import torch
+
+    from overcooked_ai_tpu_torch.core.layout import layout_on
+    from overcooked_ai_tpu_torch.core.layout_generator import gather_lanes, stack_layouts
+
+    idx = torch.randint(len(specs), (B,), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(seed))
+    return gather_lanes(layout_on(stack_layouts(specs), dev), idx)
+
+
+def _b2_spec(case):
+    from overcooked_ai_tpu_torch.core.layout import (
+        build_layout,
+        from_layout_name,
+        read_layout_config,
+    )
+
+    if case in ("cramped_room", "corridor"):
+        return from_layout_name(case)
+    if case == "p1":
+        return from_layout_name("old_dynamics_cook_test", old_dynamics=True)
+    cfg = read_layout_config("multiplayer_schelling")
+    if case == "p3":
+        cfg["grid"] = cfg["grid"].replace("4", " ")
+        return build_layout("schelling_3p", cfg)
+    return from_layout_name("multiplayer_schelling")
+
+
+def job_b2(case):
+    """Phase 3: B2 against its plain version, explicit actions and the
+    murmur3 stream: cramped_room and corridor at 256 envs x 60 steps
+    (horizon 50), the 1-, 3- and 4-player layouts at 250 x 55."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.core.layout import layout_on
+    from overcooked_ai_tpu_torch.ops import fused_rollout
+
+    spec = _b2_spec(case)
+    lay, P = spec.layout, spec.num_players
+    B, T = (256, 60) if case in ("cramped_room", "corridor") else (250, 55)
+    seed = 7 if P == 2 else 3
+    cpu = torch.device("cpu")
+    state = batch_reset(lay, B, _card())
+    acts = np.random.RandomState(0 if P == 2 else P).choice(6, size=(T, P, B), p=PROB)
+    acts = torch.from_numpy(acts.astype(np.int32))
+    got = fused_rollout.fused_rollout_actions(lay, state, acts.to(_card()), horizon=50)
+    want = fused_rollout.plain_rollout(layout_on(lay, cpu), _on(state, cpu), 0, acts, T, 50)
+    err = cpu_max_err((*got[0], got[1]), (*want[0], want[1]))
+    got = fused_rollout.fused_rollout_random(lay, state, seed, T, horizon=50)
+    want = fused_rollout.plain_rollout(layout_on(lay, cpu), _on(state, cpu), seed, None, T, 50)
+    return {"err": max(err, cpu_max_err((*got[0], got[1]), (*want[0], want[1])))}
+
+
+def _b1_case(k):
+    from overcooked_ai_tpu_torch.core.layout import from_layout_name
+
+    cramped = from_layout_name("cramped_room").layout
+    return [
+        # urgency from step 30 of 70, an auto-reset at 50
+        (cramped, 256, 60, 70, 50, False),
+        (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 60, 70, 50,
+         False),
+        (cramped, 2048, 60, 400, 400, False),  # the main path's shape
+        (cramped, 16384, 20, 400, 400, False),  # train_rollout_random's width
+        (cramped, 8, 70, 80, 60, False),  # the eval's 8 envs, urgency and a reset
+        (cramped, 37, 60, 400, 400, False),  # a ragged last tile
+        (cramped, 2048, 20, 400, 400, True),  # views at an offset: 4-byte staging copies
+        # HW = 126, the largest shipped layout; urgency from step 30
+        (from_layout_name("corridor").layout, 250, 60, 70, 50, False),
+        # a generated 16x8 layout, HW = 128: the halved tile, E = 16
+        (layout_gen((16, 8), 2).generate_spec(name="big").layout, 256, 60, 70, 50, False),
+    ][k]
+
+
+B1_CASES = 9
+
+
+def job_b1(k):
+    """Phase 4: B1 against its plain version, every step, in case k."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.core.layout import layout_on
+    from overcooked_ai_tpu_torch.core.state import State
+    from overcooked_ai_tpu_torch.ops import fused_train
+
+    dev = _card()
+    lay, B, T, horizon, reset, offset = _b1_case(k)
+    pdev = _plain_device(B)
+    lay_p = layout_on(lay, pdev)
+    rng = np.random.RandomState(1)
+    sk = batch_reset(lay, B, dev)
+    sp = _on(sk, pdev)
+    if offset:
+        sk = State(*(shifted(x) for x in sk))
+    err = 0
+    for _t in range(T):
+        a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32))
+        ak = shifted(a.to(dev)) if offset else a.to(dev)
+        if offset and fused_train.stage_wide(fused_train.tile_plan(20, B), B, (*sk, ak)):
+            raise SystemExit("B1 would stage misaligned rows in 16-byte copies")
+        kk = fused_train.fused_train_step_tiles(lay, sk, ak, horizon=horizon,
+                                                reset_horizon=reset)
+        pp = fused_train.plain_train_step(lay_p, sp, a.to(pdev), horizon, reset)
+        err = max(err, max_err([g.to(pdev) for g in (*kk[0], *kk[1:])], (*pp[0], *pp[1:])))
+        sk, sp = kk[0], pp[0]
+    return {"err": err}
+
+
+def job_b2_main():
+    """Phase 6: B2 against its plain version at the main path's 16384 envs
+    over 450 steps (one auto-reset at 400), the plain version on the card,
+    and its wall."""
+    import time as _time
+
+    import torch
+
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
+    from overcooked_ai_tpu_torch.ops import fused_rollout
+
+    dev = _card()
+    lay = from_layout_name("cramped_room").layout
+    state = batch_reset(lay, 16384, dev)
+    got = fused_rollout.launch_kernel(lay, state, 1, None, 450, 400)
+    torch.cuda.synchronize()
+    t0 = _time.perf_counter()
+    want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 1, None, 450, 400)
+    torch.cuda.synchronize()
+    return {"err": max_err((*got[0], got[1]), (*want[0], want[1])),
+            "plain_s": _time.perf_counter() - t0}
+
+
+def job_b4_main():
+    """Phase 7: B4 against its plain version on the 64-layout pool at the main
+    path's 16384 envs over 450 steps, the plain version on the card, and its
+    wall."""
+    import time as _time
+
+    import torch
+
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.ops import fused_pool
+
+    dev = _card()
+    spec_pool, specs64 = make_pool(64)
+    lay = lanes_of(specs64, 16384, 1, dev)
+    state = batch_reset(lay, 16384, dev)
+    got = fused_pool.launch_rollout_kernel(fused_pool.pool_data(spec_pool, lay, dev), state, 1,
+                                           None, 450, 400)
+    torch.cuda.synchronize()
+    t0 = _time.perf_counter()
+    want = fused_pool.plain_pool_rollout(lay, state, 1, None, 450, 400)
+    torch.cuda.synchronize()
+    return {"err": max_err((*got[0], got[1]), (*want[0], want[1])),
+            "plain_s": _time.perf_counter() - t0, "return": int(got[1].sum())}
+
+
+B4_CASES = ["5x4 ragged", "7x5", "5x4 old dynamics", "1 player", "3 players", "4 players"]
+
+
+def _b4_pool(k):
+    if k == 0:
+        return make_pool(64)
+    return [None, make_pool(16, 1, (7, 5)), make_pool(16, 5, old_dynamics=True),
+            make_pool(16, 1, (7, 5), num_players=1), make_pool(16, 3, (7, 5), num_players=3),
+            make_pool(16, 4, (7, 5), num_players=4)][k]
+
+
+def job_b4(k):
+    """Phase 7: B4 against its plain version on pool case k, 250 envs (a
+    ragged last block) x 55 steps (resets at 50), actions and murmur3."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.core.layout import layout_on
+    from overcooked_ai_tpu_torch.ops import fused_pool
+
+    dev, cpu = _card(), torch.device("cpu")
+    spec0, specs = _b4_pool(k)
+    B, T, P = 250, 55, spec0.num_players
+    lay = lanes_of(specs, B, k, dev)
+    lay_h = layout_on(lay, cpu)
+    state = batch_reset(lay, B, dev)
+    acts = torch.from_numpy(np.random.RandomState(k).choice(6, size=(T, P, B), p=PROB)
+                            .astype(np.int32))
+    got = fused_pool.fused_pool_rollout_actions(spec0, lay, state, acts.to(dev), horizon=50)
+    want = fused_pool.plain_pool_rollout(lay_h, _on(state, cpu), 0, acts, T, 50)
+    err = cpu_max_err((*got[0], got[1]), (*want[0], want[1]))
+    got = fused_pool.fused_pool_rollout_random(spec0, lay, state, 3, T, horizon=50)
+    want = fused_pool.plain_pool_rollout(lay_h, _on(state, cpu), 3, None, T, 50)
+    return {"err": max(err, cpu_max_err((*got[0], got[1]), (*want[0], want[1])))}
+
+
+B3_CASES = ["5x4 B=2048", "5x4 B=37", "7x5 B=256", "old dynamics B=256", "mixed B=256",
+            "16x8 B=250"]
+
+
+def job_b3(k):
+    """Phase 8: B3 against its plain version, every step, on pool case k
+    (auto-resets at 50; urgency from step 30 of 70)."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.core.layout import layout_on
+    from overcooked_ai_tpu_torch.ops import fused_pool
+
+    dev, cpu = _card(), torch.device("cpu")
+    (spec0, specs), B = [
+        (make_pool(64), 2048),  # the main path's shape
+        (make_pool(64), 37),  # fewer envs than a block
+        (make_pool(16, 1, (7, 5)), 256),
+        (make_pool(16, 5, old_dynamics=True), 256),
+        (make_pool(4, 5, cfgs=MIXED), 256),
+        (make_pool(16, 2, (16, 8)), 250),  # HW = 128: E = 16
+    ][k]
+    lay = lanes_of(specs, B, 10 + k, dev)
+    pool = fused_pool.pool_data(spec0, lay, dev)
+    lay_h = layout_on(pool.layout, cpu)
+    rng = np.random.RandomState(k)
+    sk = batch_reset(lay, B, dev)
+    sp = _on(sk, cpu)
+    err = sparse = shaped = 0
+    for _t in range(60):
+        a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32))
+        kk = fused_pool.fused_pool_train_step_tiles(spec0, pool, sk, a.to(dev), horizon=70,
+                                                    reset_horizon=50)
+        pp = fused_pool.plain_pool_train_step(lay_h, sp, a, 70, 50)
+        err = max(err, cpu_max_err((*kk[0], *kk[1:]), (*pp[0], *pp[1:])))
+        sparse += int(kk[2].sum())
+        shaped += int(kk[3].sum())
+        sk, sp = kk[0], pp[0]
+    return {"err": err, "rows": pool.table_rows.shape[0], "sparse": sparse, "shaped": shaped}
+
+
+SOUPS = {  # case -> {(x, y): (slots, tick)}
+    "cooking": {(0, 0): ((1, 1, 1), 5), (4, 2): ((1, 2, 0), 0), (3, 0): ((2, 2, 2), 18),
+                (2, 0): ((1, 1, 1), 3), (1, 0): ((1, 0, 0), -1)},
+    "old_idle": {(0, 0): ((1, 1, 1), -1), (0, 2): ((2, 2, 2), -1), (4, 2): ((1, 2, 0), -1)},
+    "carried": {(2, 3): ((1, 1, 1), 5)},
+}
+
+
+def job_soups(case):
+    """Phase 11: B2 and B4 against their plain versions on a crafted
+    `cramped_room` state whose live cells are not only the pots (as in
+    tests/test_torch_rollout_soups.py), explicit actions, 70 envs (a ragged
+    last block): 20 steps keep the crafted soups, 30 cross an auto-reset at
+    25."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
+    from overcooked_ai_tpu_torch.ops import fused_pool, fused_rollout
+
+    dev, cpu = _card(), torch.device("cpu")
+    B = 70
+    spec_s = from_layout_name("cramped_room", old_dynamics=case == "old_idle")
+    specs_s = [spec_s, from_layout_name("cramped_room", old_dynamics=case == "old_idle")]
+    st = batch_reset(spec_s.layout, B, dev)
+    for k, ((x, y), (slots, tick)) in enumerate(SOUPS[case].items()):
+        st.obj[y, x] = OBJ_SOUP
+        st.soup_ing[y, x] = torch.tensor(slots, dtype=torch.int32, device=dev)[:, None]
+        st.soup_tick[y, x] = tick
+        st.obj_seq[y, x] = k + 1
+    acts = torch.from_numpy(
+        np.random.RandomState(11).choice(6, size=(30, 2, B), p=PROB).astype(np.int32))
+    if case == "carried":  # player 0 faces the soup, picks it up, carries it east, drops it
+        st.pos[0, 0], st.pos[0, 1], st.orient[0] = 2, 2, 1
+        acts[:4, 0] = torch.tensor([5, 2, 2, 5], dtype=torch.int32)[:, None]
+        acts[:4, 1] = 4
+    lay_s = lanes_of(specs_s, B, 7, dev)
+    spec0_s = fused_pool.check_pool_uniform(specs_s)
+    err = 0
+    for steps, horizon in ((20, 400), (30, 25)):
+        a = acts[:steps]
+        got = fused_rollout.fused_rollout_actions(spec_s.layout, st, a.to(dev), horizon)
+        got4 = fused_pool.fused_pool_rollout_actions(spec0_s, lay_s, st, a.to(dev), horizon)
+        want = fused_rollout.plain_rollout(layout_on(spec_s.layout, cpu), _on(st, cpu), 0, a,
+                                           steps, horizon)
+        want4 = fused_pool.plain_pool_rollout(layout_on(lay_s, cpu), _on(st, cpu), 0, a, steps,
+                                              horizon)
+        err = max(err, cpu_max_err((*got[0], got[1]), (*want[0], want[1])),
+                  cpu_max_err((*got4[0], got4[1]), (*want4[0], want4[1])))
+    return {"err": err}
+
+
+class Recorded:
+    """The card's draws (a torch.Generator's), kept for the CPU's replay."""
+
+    def __init__(self, inner):
+        self.inner, self.log = inner, {}
+
+    def at(self, t, player):
+        from overcooked_ai_tpu_torch.agents.agents import StepDraws
+
+        return StepDraws(self, t, player)
+
+    def uniform(self, t, player, name):
+        u = self.log[(t, player, name)] = self.inner.uniform(t, player, name)
+        return u
+
+    def gumbel(self, t, player, name, shape):
+        g = self.log[(t, player, name)] = self.inner.gumbel(t, player, name, shape)
+        return g
+
+
+class Replayed(Recorded):
+    """The first `n` games' draws of a recorded run, on the CPU."""
+
+    def __init__(self, log, n):
+        self.log, self.n = log, n
+
+    def uniform(self, t, player, name):
+        return self.log[(t, player, name)][..., :self.n].cpu()
+
+    def gumbel(self, t, player, name, shape):
+        return self.log[(t, player, name)][..., :self.n].cpu()
+
+
+def traj_err(card, cpu, n):
+    """Largest difference between the card's first `n` games and the CPU's,
+    over the CPU's steps (the card's first ones)."""
+    import numpy as np
+    import torch
+
+    def fields(t):
+        return (*t["state"], t["actions"], t["sparse"], t["shaped"], t["events"])
+    steps = cpu["actions"].shape[0]
+    return max_err([torch.from_numpy(np.ascontiguousarray(x[:steps, ..., :n]))
+                    for x in fields(card)], [torch.from_numpy(x) for x in fields(cpu)])
+
+
+N_CPU = 8  # games the CPU replays of a card's run of agent pairs
+
+
+def _pair(kind, spec, device):
+    """An agent pair of phase 13 (greedy, boltzmann) or 16 (the converted
+    recurrent run) on `device`."""
+    from overcooked_ai_tpu_torch.agents import agents as agents_mod
+    from overcooked_ai_tpu_torch.agents.evaluation import greedy_agent_fn
+    from overcooked_ai_tpu_torch.agents.loading import build_agent
+    from overcooked_ai_tpu_torch.planning.greedy_tables import build_greedy_tables
+    from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
+
+    if kind == "greedy":
+        agent = greedy_agent_fn(agents_mod.make_greedy_human_model(
+            spec, build_greedy_tables(spec, device=device)))
+        return [agent, agent]
+    if kind == "boltzmann":
+        tables = build_motion_tables(spec.layout.terrain)
+        return [build_agent(k, spec, tables, device) for k in ("boltzmann", "stay")]
+    agent = build_agent(f"ppo:{os.path.join(ROOT, 'artifacts_torch', 'r4_lstm_cramped')}", spec,
+                        None, device)
+    return [agent, agent]
+
+
+def job_pair_replay(kind, name, games, seed, steps):
+    """The first `steps` steps of the card's run of an agent pair at `games`
+    games (a generator seeded `seed` on the card, as the timed run of its
+    phase draws) against the CPU's replay of its first N_CPU games with the
+    card's recorded draws; with the card's actions in those games, which
+    the timed run's must equal."""
+    import torch
+
+    from overcooked_ai_tpu_torch.agents import agents as agents_mod
+    from overcooked_ai_tpu_torch.agents.evaluation import run_agent_pair
+    from overcooked_ai_tpu_torch.core.layout import from_layout_name
+
+    dev = _card()
+    spec = from_layout_name(name)
+    draws = Recorded(agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(seed),
+                                               games))
+    card = run_agent_pair(spec, _pair(kind, spec, dev), num_games=games, horizon=steps,
+                          device=dev, draws=draws)
+    cpu = run_agent_pair(spec, _pair(kind, spec, "cpu"), num_games=N_CPU, horizon=steps,
+                         device="cpu", draws=Replayed(draws.log, N_CPU))
+    return {"err": traj_err(card, cpu, N_CPU), "actions": card["actions"][..., :N_CPU]}
+
+
+ARTIFACT_LAYOUTS = ["cramped_room", "asymmetric_advantages", "coordination_ring",
+                    "forced_coordination", "counter_circuit_o_1order"]
+# the JAX package's trained runs, converted by convert_jax_checkpoints.py
+ARTIFACT_RUNS = ([f"{art}/ppo_{kind}_{layout}" for art in ("eval_artifact", "eval_artifact_old")
+                  for kind in ("sp", "bc") for layout in ARTIFACT_LAYOUTS]
+                 + ["r4_lstm_cramped"])
+
+
+def artifact_logits(dev):
+    """Phase 16a: every converted agent through `build_agent` on the card and
+    on the CPU, its logits on a batch of B1's obs (256 envs after 60 steps of
+    interact-heavy random play on its layout, at its dynamics; a recurrent
+    agent over two steps from a zero carry): [(run, max |card - CPU|,
+    largest |logit|)] and the seconds taken."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.agents.loading import build_agent
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.core.layout import from_layout_name
+    from overcooked_ai_tpu_torch.core.state import State
+    from overcooked_ai_tpu_torch.ops import fused_train
+
+    t0 = time.perf_counter()
+    cpu, B = torch.device("cpu"), 256
+    batches, rows = {}, []
+    for run in ARTIFACT_RUNS:
+        path = os.path.join(ROOT, "artifacts_torch", run)
+        with open(os.path.join(path, "config.json")) as f:
+            layout = json.load(f)["layout"]
+        old = run.startswith("eval_artifact_old/")
+        spec = from_layout_name(layout, old_dynamics=old)
+        if (layout, old) not in batches:
+            state = batch_reset(spec.layout, B, dev)
+            rng = np.random.RandomState(16)
+            for _ in range(60):
+                a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32))
+                state, obs = fused_train.fused_train_step_tiles(spec.layout, state, a.to(dev),
+                                                                horizon=400)[:2]
+            batches[(layout, old)] = (state, obs)
+        state, obs = batches[(layout, old)]
+        state_h, obs_h = State(*(x.cpu() for x in state)), obs.cpu()
+        out = []
+        for d, st, ob in ((dev, state, obs), (cpu, state_h, obs_h)):
+            policy = build_agent(f"ppo:{path}", spec, None, d).policy
+            with torch.no_grad():
+                if hasattr(policy, "init_carry"):
+                    carry, logits = policy.init_carry(B, d), []
+                    for seat in (0, 1):
+                        lg, _, carry = policy.net.step(policy.net_input(st, ob, seat), carry)
+                        logits.append(lg)
+                    out.append(torch.cat(logits).cpu())
+                else:
+                    out.append(torch.cat([policy.logits(st, ob, seat) for seat in (0, 1)]).cpu())
+        rows.append((run, float((out[0] - out[1]).abs().max()), float(out[1].abs().max())))
+    return rows, time.perf_counter() - t0
+
+
+def parity_jobs():
+    """(label, function, args) of every parity job, the longest first."""
+    return ([("6 B2 16384x450", job_b2_main, ()), ("7 B4 16384x450", job_b4_main, ()),
+             ("13 greedy cramped_room", job_pair_replay,
+              ("greedy", "cramped_room", 1024, 13, 200)),
+             ("13 boltzmann+stay cramped_room", job_pair_replay,
+              ("boltzmann", "cramped_room", 1024, 2, 200)),
+             ("13 greedy counter_circuit_o_1order", job_pair_replay,
+              ("greedy", "counter_circuit_o_1order", 1024, 13, 200)),
+             ("16c LSTM agent cramped_room", job_pair_replay,
+              ("lstm", "cramped_room", 8, 16, 50))]
+            + [(f"4 B1 case {k}", job_b1, (k,)) for k in range(B1_CASES)]
+            + [(f"8 B3 {c}", job_b3, (k,)) for k, c in enumerate(B3_CASES)]
+            + [(f"7 B4 {c}", job_b4, (k,)) for k, c in enumerate(B4_CASES)]
+            + [(f"3 B2 {c}", job_b2, (c,)) for c in ("cramped_room", "corridor", "p1", "p3",
+                                                     "p4")]
+            + [(f"11 soups {c}", job_soups, (c,)) for c in SOUPS])
+
+
+def _timed_job(fn, args):
+    """fn(*args) in a worker, with the worker's wall for it."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    out["secs"] = time.perf_counter() - t0
+    return out
+
+
+def start_workers():
+    """A pool of WORKERS spawned processes, each started now (its
+    `_worker_init`, while the main process builds the kernels); returns
+    (executor, futures of each worker's start seconds)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ex = ProcessPoolExecutor(WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_worker_init)
+    return ex, [ex.submit(_started) for _ in range(WORKERS)]
+
+
+def submit_parity_jobs(ex):
+    """Every parity job, on the pool; {label: future}."""
+    return {label: ex.submit(_timed_job, fn, args) for label, fn, args in parity_jobs()}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -149,13 +746,13 @@ def main() -> int:
     from overcooked_ai_tpu_torch.agents import agents as agents_mod
     from overcooked_ai_tpu_torch.agents.evaluation import (
         check_trajectories,
-        greedy_agent_fn,
         run_agent_pair,
         stateless,
         trajectories_to_reference_format,
     )
     from overcooked_ai_tpu_torch.agents.loading import build_agent
     from overcooked_ai_tpu_torch.cli import (
+        eval_artifact,
         eval_matrix,
         eval_pool,
         train_bc_proxy,
@@ -166,21 +763,13 @@ def main() -> int:
     from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS
     from overcooked_ai_tpu_torch.core.env import batch_reset, rollout_random
     from overcooked_ai_tpu_torch.core.featurize import featurize_batch
-    from overcooked_ai_tpu_torch.core.layout import (
-        build_layout,
-        from_layout_name,
-        layout_on,
-        read_layout_config,
-    )
-    from overcooked_ai_tpu_torch.core.layout_generator import (
-        LayoutGenerator,
-        gather_lanes,
-        stack_layouts,
-    )
+    from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
+    from overcooked_ai_tpu_torch.core.layout_generator import stack_layouts
     from overcooked_ai_tpu_torch.core.potential import make_potential_fn, make_potential_fn_pool
     from overcooked_ai_tpu_torch.core.state import State
+    from overcooked_ai_tpu_torch.demo.game import DemoGame, npc_from_kind
+    from overcooked_ai_tpu_torch.interop.single_env import OvercookedEnv
     from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
-    from overcooked_ai_tpu_torch.planning.greedy_tables import build_greedy_tables
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
     from overcooked_ai_tpu_torch.training.bc import (
         bc_policy_batch,
@@ -204,6 +793,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # the net in full float32
     torch.backends.cudnn.allow_tf32 = False
+
+    # the parity jobs' worker processes start now, beside phases 1 and 2
+    executor, started = start_workers()
 
     # ---- 1. device
     t0 = time.perf_counter()
@@ -245,92 +837,38 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
-    # ---- 3. B2 parity, kernel vs plain
-    t0 = time.perf_counter()
-    b2_err = 0
-    for name in ("cramped_room", "corridor"):
-        lay = from_layout_name(name).layout
-        B, T = 256, 60  # 60 steps at horizon 50 cross an auto-reset
-        state = batch_reset(lay, B, dev)
-        acts = torch.from_numpy(
-            np.random.RandomState(0).choice(6, size=(T, 2, B), p=PROB).astype(np.int32)
-        ).to(dev)
-        got = fused_rollout.fused_rollout_actions(lay, state, acts, horizon=50)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 0, acts, T, 50)
-        b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-        got = fused_rollout.fused_rollout_random(lay, state, 7, T, horizon=50)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 7, None, T, 50)
-        b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-    # the other player counts the kernel is built for: 1 (old dynamics), 3, 4
-    cfg3 = read_layout_config("multiplayer_schelling")
-    cfg3["grid"] = cfg3["grid"].replace("4", " ")
-    for spec_p in (from_layout_name("old_dynamics_cook_test", old_dynamics=True),
-                   build_layout("schelling_3p", cfg3),
-                   from_layout_name("multiplayer_schelling")):
-        lay, P = spec_p.layout, spec_p.num_players
-        B, T = 250, 55  # a ragged last block; crosses the auto-reset at 50
-        state = batch_reset(lay, B, dev)
-        acts = torch.from_numpy(
-            np.random.RandomState(P).choice(6, size=(T, P, B), p=PROB).astype(np.int32)
-        ).to(dev)
-        got = fused_rollout.fused_rollout_actions(lay, state, acts, horizon=50)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 0, acts, T, 50)
-        b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-        got = fused_rollout.fused_rollout_random(lay, state, 3, T, horizon=50)
-        want = fused_rollout.plain_rollout(layout_on(lay, dev), state, 3, None, T, 50)
-        b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-    log(f"[3 B2 parity] {time.perf_counter() - t0:.2f}s cramped_room+corridor B=256 "
-        f"T=60, 1/3/4-player layouts B=250 T=55, actions+murmur3 max_abs_err={b2_err}")
+    # ---- 3, 4, 6-8, 11, 13, 16c: the parity jobs, in worker processes, all
+    # started now; phase 16a's card-against-CPU logits meanwhile (not timed)
+    t_pool = time.perf_counter()
+    try:
+        futures = submit_parity_jobs(executor)
+        n_threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # the workers have the other cores
+        agents16 = artifact_logits(dev)
+        torch.set_num_threads(n_threads)
+        jobs = {label: fut.result() for label, fut in futures.items()}
+        start_s = [fut.result() for fut in started]
+    finally:
+        executor.shutdown(cancel_futures=True)
+    pool_wall = time.perf_counter() - t_pool
+    log(f"[parity jobs] {pool_wall:.2f}s after the build, {len(jobs)} jobs "
+        f"({sum(v['secs'] for v in jobs.values()):.1f}s of work) on {WORKERS} worker processes "
+        f"(one torch thread each, started beside phases 1-2 in "
+        f"{max(x for x in start_s if x is not None):.2f}s at most), seconds each: "
+        + json.dumps({k: round(v["secs"], 2) for k, v in jobs.items()}))
+
+    def jobs_of(prefix):
+        return {k: v for k, v in jobs.items() if k.startswith(prefix)}
+
+    b2_err = max(v["err"] for v in jobs_of("3 ").values())
+    log(f"[3 B2 parity] {max(v['secs'] for v in jobs_of('3 ').values()):.2f}s (longest job) "
+        f"cramped_room+corridor B=256 T=60, 1/3/4-player layouts B=250 T=55, actions+murmur3 "
+        f"max_abs_err={b2_err}")
     if b2_err:
         raise SystemExit("B2 kernel disagrees with its plain version")
-
-    # ---- 4. B1 parity, kernel vs plain, every step
-    def shifted(x):
-        """x as a contiguous view that starts 4 bytes past a 16-byte boundary."""
-        return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(
-            x.shape).copy_(x)
-
-    def layout_gen(outer_shape, seed, num_players=2):  # as the JAX bench.py's pools
-        return LayoutGenerator(outer_shape=outer_shape, prop_empty=0.95, prop_feats=0.1,
-                               num_players=num_players, rng=np.random.RandomState(seed))
-
-    t0 = time.perf_counter()
-    b1_err = 0
-    cramped = from_layout_name("cramped_room").layout
-    for lay, B, T, horizon, reset, offset in (
-            # urgency from step 30 of 70, an auto-reset at 50
-            (cramped, 256, 60, 70, 50, False),
-            (from_layout_name("coordination_ring", old_dynamics=True).layout, 256, 60, 70,
-             50, False),
-            (cramped, 2048, 60, 400, 400, False),  # the main path's shape
-            (cramped, 16384, 20, 400, 400, False),  # train_rollout_random's width
-            (cramped, 8, 70, 80, 60, False),  # the eval's 8 envs, urgency and a reset
-            (cramped, 37, 60, 400, 400, False),  # a ragged last tile
-            (cramped, 2048, 20, 400, 400, True),  # views at an offset: 4-byte staging copies
-            # HW = 126, the largest shipped layout; urgency from step 30
-            (from_layout_name("corridor").layout, 250, 60, 70, 50, False),
-            # a generated 16x8 layout, HW = 128: the halved tile, E = 16
-            (layout_gen((16, 8), 2).generate_spec(name="big").layout, 256, 60, 70, 50,
-             False)):
-        lay_dev = layout_on(lay, dev)  # the plain version's tables, on the card
-        rng = np.random.RandomState(1)
-        sk = sp = batch_reset(lay, B, dev)
-        if offset:
-            sk = State(*(shifted(x) for x in sk))
-        err = torch.zeros((), dtype=torch.int64, device=dev)
-        for _t in range(T):
-            a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
-            ak = shifted(a) if offset else a
-            if offset and fused_train.stage_wide(fused_train.tile_plan(20, B), B, (*sk, ak)):
-                raise SystemExit("B1 would stage misaligned rows in 16-byte copies")
-            k = fused_train.fused_train_step_tiles(lay, sk, ak, horizon=horizon,
-                                                   reset_horizon=reset)
-            p = fused_train.plain_train_step(lay_dev, sp, a, horizon, reset)
-            for g, w in zip((*k[0], *k[1:]), (*p[0], *p[1:])):
-                err = torch.maximum(err, (g.long() - w.long()).abs().max())
-            sk, sp = k[0], p[0]
-        b1_err = max(b1_err, int(err))
-    log(f"[4 B1 parity] {time.perf_counter() - t0:.2f}s cramped_room,coordination_ring(old) "
+    b1_err = max(v["err"] for v in jobs_of("4 ").values())
+    log(f"[4 B1 parity] {max(v['secs'] for v in jobs_of('4 ').values()):.2f}s (longest job) "
+        f"cramped_room,coordination_ring(old) "
         f"B=256 T=60, cramped_room B=2048 T=60, B=16384 T=20, B=8 T=70, B=37 T=60 and "
         f"offset views "
         f"B=2048 T=20, corridor B=250 T=60, 16x8 B=256 T=60 "
@@ -504,6 +1042,9 @@ def main() -> int:
     B, T, T_CMP = 16384, 4000, 450
     state = batch_reset(lay, B, dev)
     lay_b2, state_b2 = lay, state
+    # a short warm-up: the main process launches B2 here first (its parity
+    # cases run in the jobs), and a first launch carries one-time costs
+    rollout_random(lay, state, 1, 8, horizon=400)
     fused_train.launches = fused_rollout.launches = 0
     (final, total), t_b2 = synced(lambda: rollout_random(lay, state, 1, T, horizon=400))
     b2_launches, b1_main6 = fused_rollout.launches, fused_train.launches
@@ -511,12 +1052,12 @@ def main() -> int:
         raise SystemExit(f"rollout_random launched B2 {b2_launches} times, want 1")
     if not (bool(final.t.eq(T % 400).all()) and int(total) > 0):  # ten whole episodes
         raise SystemExit("rollout_random: wrong final timestep or no delivery at all")
-    got, b2_ms = card_ms(lambda: fused_rollout.launch_kernel(lay, state, 1, None, T_CMP, 400))
+    _, b2_ms = card_ms(lambda: fused_rollout.launch_kernel(lay, state, 1, None, T_CMP, 400))
     _, b2_main_ms = card_ms(lambda: fused_rollout.launch_kernel(lay, state, 1, None, T, 400))
-    want, t_plain = synced(
-        lambda: fused_rollout.plain_rollout(lay_dev, state, 1, None, T_CMP, 400)
-    )
-    b2_err = max(b2_err, max_err((*got[0], got[1]), (*want[0], want[1])))
+    # the kernel against its plain version (on the card) at 16384 x 450: a
+    # parity job's, with the plain version's wall there
+    t_plain = jobs["6 B2 16384x450"]["plain_s"]
+    b2_err = max(b2_err, jobs["6 B2 16384x450"]["err"])
     if b2_err:
         raise SystemExit("B2 kernel disagrees with its plain version at 16384 envs")
     # integer operations of one env step, counted by hand from
@@ -536,23 +1077,10 @@ def main() -> int:
         f"{t_b2 * 1e3:.3f} ms = {B * T / t_b2:.0f} env-steps/s, return={int(total)}; "
         f"B2 launches={b2_launches} B1={b1_main6}; kernel (events) {b2_main_ms:.4f} ms, "
         f"bound {b2_main_bound_ms:.4f} ms (old count {b2_old_bounds[T]:.4f}); {B}x{T_CMP}: kernel "
-        f"{b2_ms:.4f} ms, plain {t_plain * 1e3:.1f} ms, bound {b2_bound_ms:.4f} ms (old count "
+        f"{b2_ms:.4f} ms, plain {t_plain * 1e3:.1f} ms (a parity job), bound {b2_bound_ms:.4f} ms (old count "
         f"{b2_old_bounds[T_CMP]:.4f}), max_abs_err={b2_err}")
 
     # ---- the layout-pool path (B3, B4): pools as the JAX bench.py makes them
-    def make_pool(n, seed=0, outer_shape=(5, 4), cfgs=None, **kw):
-        """n generated layouts; `cfgs`, one per layout, mixes their tables."""
-        gen_ = layout_gen(outer_shape, seed, kw.pop("num_players", 2))
-        specs = [gen_.generate_spec(name=f"bench_{i}", **(cfgs[i] if cfgs else kw))
-                 for i in range(n)]
-        check = fused_pool.check_pool_shape if cfgs else fused_pool.check_pool_uniform
-        return check(specs), specs
-
-    def lanes_of(specs, B, seed):
-        idx = torch.randint(len(specs), (B,), device=dev,
-                            generator=torch.Generator(device=dev).manual_seed(seed))
-        return gather_lanes(layout_on(stack_layouts(specs), dev), idx)
-
     def reset_counts():
         fused_train.launches = fused_rollout.launches = 0
         fused_pool.train_launches = fused_pool.rollout_launches = 0
@@ -563,73 +1091,30 @@ def main() -> int:
 
     spec_pool, specs64 = make_pool(64)  # bench.py _make_pool: 64 layouts of 5x4
 
-    # ---- 7. B4 parity, kernel vs plain, on per-lane layouts
-    t0 = time.perf_counter()
-    B, T_CMP = 16384, 450  # the main path's envs; 450 steps cross the auto-reset at 400
-    lay_b4 = lanes_of(specs64, B, 1)
+    # ---- 7. B4 parity, kernel vs plain, on per-lane layouts (the parity
+    # jobs), and the kernel's time at the main path's 16384 envs over 450
+    # steps (crossing the auto-reset at 400)
+    B, T_CMP = 16384, 450
+    lay_b4 = lanes_of(specs64, B, 1, dev)
     state_b4 = batch_reset(lay_b4, B, dev)
     pool_b4 = fused_pool.pool_data(spec_pool, lay_b4, dev)
-    got, b4_cmp_ms = card_ms(lambda: fused_pool.launch_rollout_kernel(
+    _, b4_cmp_ms = card_ms(lambda: fused_pool.launch_rollout_kernel(
         pool_b4, state_b4, 1, None, T_CMP, 400))
-    want, b4_plain_s = synced(lambda: fused_pool.plain_pool_rollout(lay_b4, state_b4, 1, None,
-                                                                     T_CMP, 400))
-    b4_err = max_err((*got[0], got[1]), (*want[0], want[1]))
-    b4_cmp_return = int(got[1].sum())
-    cases = [("5x4 ragged", spec_pool, specs64),
-             ("7x5", *make_pool(16, 1, (7, 5))),
-             ("5x4 old dynamics", *make_pool(16, 5, old_dynamics=True)),
-             ("1 player", *make_pool(16, 1, (7, 5), num_players=1)),
-             ("3 players", *make_pool(16, 3, (7, 5), num_players=3)),
-             ("4 players", *make_pool(16, 4, (7, 5), num_players=4))]
-    for k, (_, spec0, specs) in enumerate(cases):
-        B, T, P = 250, 55, spec0.num_players  # a ragged last block; resets at 50
-        lay = lanes_of(specs, B, k)
-        state = batch_reset(lay, B, dev)
-        pacts = torch.from_numpy(
-            np.random.RandomState(k).choice(6, size=(T, P, B), p=PROB).astype(np.int32)
-        ).to(dev)
-        got = fused_pool.fused_pool_rollout_actions(spec0, lay, state, pacts, horizon=50)
-        want = fused_pool.plain_pool_rollout(lay, state, 0, pacts, T, 50)
-        b4_err = max(b4_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-        got = fused_pool.fused_pool_rollout_random(spec0, lay, state, 3, T, horizon=50)
-        want = fused_pool.plain_pool_rollout(lay, state, 3, None, T, 50)
-        b4_err = max(b4_err, max_err((*got[0], got[1]), (*want[0], want[1])))
-    log(f"[7 B4 parity] {time.perf_counter() - t0:.2f}s 64-layout pool B=16384 T={T_CMP} "
-        f"murmur3 (return={b4_cmp_return}); B=250 T=55 actions+murmur3: "
-        f"{', '.join(c[0] for c in cases)}; max_abs_err={b4_err}")
+    b4_plain_s = jobs["7 B4 16384x450"]["plain_s"]
+    b4_cmp_return = jobs["7 B4 16384x450"]["return"]
+    b4_err = max(v["err"] for v in jobs_of("7 ").values())
+    log(f"[7 B4 parity] {max(v['secs'] for v in jobs_of('7 ').values()):.2f}s (longest job) "
+        f"64-layout pool B=16384 T={T_CMP} murmur3 (return={b4_cmp_return}); B=250 T=55 "
+        f"actions+murmur3: {', '.join(B4_CASES)}; max_abs_err={b4_err}")
     if b4_err:
         raise SystemExit("B4 kernel disagrees with its plain version")
 
-    # ---- 8. B3 parity, kernel vs plain, every step
-    t0 = time.perf_counter()
-    b3_err = mixed_rows = mixed_sparse = mixed_shaped = 0
-    for k, (label, (spec0, specs), B, T) in enumerate((
-            ("5x4 B=2048", (spec_pool, specs64), 2048, 60),  # the main path's shape
-            ("5x4 B=37", (spec_pool, specs64), 37, 60),  # fewer envs than a block
-            ("7x5 B=256", make_pool(16, 1, (7, 5)), 256, 60),
-            ("old dynamics B=256", make_pool(16, 5, old_dynamics=True), 256, 60),
-            ("mixed B=256", make_pool(4, 5, cfgs=MIXED), 256, 60),
-            ("16x8 B=250", make_pool(16, 2, (16, 8)), 250, 60))):  # HW = 128: E = 16
-        lay = lanes_of(specs, B, 10 + k)
-        pool = fused_pool.pool_data(spec0, lay, dev)
-        rng = np.random.RandomState(k)
-        sk = sp = batch_reset(lay, B, dev)
-        err = torch.zeros((), dtype=torch.int64, device=dev)
-        for _t in range(T):  # auto-resets at 50; urgency from step 30 of 70
-            a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
-            kk = fused_pool.fused_pool_train_step_tiles(spec0, pool, sk, a, horizon=70,
-                                                        reset_horizon=50)
-            pp = fused_pool.plain_pool_train_step(pool.layout, sp, a, 70, 50)
-            for g, w in zip((*kk[0], *kk[1:]), (*pp[0], *pp[1:])):
-                err = torch.maximum(err, (g.long() - w.long()).abs().max())
-            sk, sp = kk[0], pp[0]
-            if label.startswith("mixed"):
-                mixed_sparse += int(kk[2].sum())
-                mixed_shaped += int(kk[3].sum())
-        if label.startswith("mixed"):
-            mixed_rows = pool.table_rows.shape[0]
-        b3_err = max(b3_err, int(err))
-    log(f"[8 B3 parity] {time.perf_counter() - t0:.2f}s 5x4 B=2048 T=60 and B=37 T=60, "
+    # ---- 8. B3 parity, kernel vs plain, every step (the parity jobs)
+    b3_err = max(v["err"] for v in jobs_of("8 ").values())
+    mixed = jobs["8 B3 mixed B=256"]
+    mixed_rows, mixed_sparse, mixed_shaped = mixed["rows"], mixed["sparse"], mixed["shaped"]
+    log(f"[8 B3 parity] {max(v['secs'] for v in jobs_of('8 ').values()):.2f}s (longest job) "
+        f"5x4 B=2048 T=60 and B=37 T=60, "
         f"7x5 B=256 T=60, old dynamics B=256 T=60, mixed tables B=256 T=60 "
         f"({mixed_rows} distinct rows, shaped={mixed_shaped} sparse={mixed_sparse}), 16x8 "
         f"B=250 T=60 (tile {fused_train.tile_plan(128, 250, pool=True).envs} envs), "
@@ -670,7 +1155,7 @@ def main() -> int:
 
     # B3 time per launch at the main path's shape, from the profiler
     B, n = 2048, 50
-    lay = lanes_of(specs64, B, 2)
+    lay = lanes_of(specs64, B, 2, dev)
     pool = fused_pool.pool_data(spec_pool, lay, dev)
     state = batch_reset(lay, B, dev)
     act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
@@ -757,50 +1242,13 @@ def main() -> int:
         + json.dumps({k: round(v, 5) for k, v in rollout_sweep.items()}))
 
     # ---- 11. soups off the pots, kernel vs plain: crafted `cramped_room`
-    # states whose live cells are not only the pots (as in
-    # tests/test_torch_rollout_soups.py), on B2 and on B4 (lanes of two
-    # cramped_room specs), with explicit actions
-    t0 = time.perf_counter()
-    soups = {  # case -> {(x, y): (slots, tick)}
-        "cooking": {(0, 0): ((1, 1, 1), 5), (4, 2): ((1, 2, 0), 0), (3, 0): ((2, 2, 2), 18),
-                    (2, 0): ((1, 1, 1), 3), (1, 0): ((1, 0, 0), -1)},
-        "old_idle": {(0, 0): ((1, 1, 1), -1), (0, 2): ((2, 2, 2), -1), (4, 2): ((1, 2, 0), -1)},
-        "carried": {(2, 3): ((1, 1, 1), 5)},
-    }
-    B = 70  # a ragged last block
-    soups_err = 0
-    for case, cells in soups.items():
-        spec_s = from_layout_name("cramped_room", old_dynamics=case == "old_idle")
-        specs_s = [spec_s, from_layout_name("cramped_room", old_dynamics=case == "old_idle")]
-        st = batch_reset(spec_s.layout, B, dev)
-        for k, ((x, y), (slots, tick)) in enumerate(cells.items()):
-            st.obj[y, x] = OBJ_SOUP
-            st.soup_ing[y, x] = torch.tensor(slots, dtype=torch.int32, device=dev)[:, None]
-            st.soup_tick[y, x] = tick
-            st.obj_seq[y, x] = k + 1
-        acts = torch.from_numpy(
-            np.random.RandomState(11).choice(6, size=(30, 2, B), p=PROB).astype(np.int32))
-        if case == "carried":  # player 0 faces the soup, picks it up, carries it east, drops it
-            st.pos[0, 0], st.pos[0, 1], st.orient[0] = 2, 2, 1
-            acts[:4, 0] = torch.tensor([5, 2, 2, 5], dtype=torch.int32)[:, None]
-            acts[:4, 1] = 4
-        acts = acts.to(dev)
-        lay_s = lanes_of(specs_s, B, 7)
-        spec0_s = fused_pool.check_pool_uniform(specs_s)
-        # 20 steps keep the crafted soups; 30 cross an auto-reset at 25
-        for steps, horizon in ((20, 400), (30, 25)):
-            a = acts[:steps]
-            got = fused_rollout.fused_rollout_actions(spec_s.layout, st, a, horizon)
-            got4 = fused_pool.fused_pool_rollout_actions(spec0_s, lay_s, st, a, horizon)
-            want = fused_rollout.plain_rollout(layout_on(spec_s.layout, dev), st, 0, a, steps,
-                                               horizon)
-            want4 = fused_pool.plain_pool_rollout(lay_s, st, 0, a, steps, horizon)
-            soups_err = max(soups_err, max_err((*got[0], got[1]), (*want[0], want[1])),
-                            max_err((*got4[0], got4[1]), (*want4[0], want4[1])))
+    # states whose live cells are not only the pots, on B2 and on B4 (the
+    # parity jobs)
+    soups_err = max(v["err"] for v in jobs_of("11 ").values())
     b2_err, b4_err = max(b2_err, soups_err), max(b4_err, soups_err)
-    log(f"[11 soups off the pots] {time.perf_counter() - t0:.2f}s cooking, old_idle, carried: "
-        f"B={B}, explicit actions, 20 steps and 30 across an auto-reset, B2 and B4 "
-        f"max_abs_err={soups_err}")
+    log(f"[11 soups off the pots] {max(v['secs'] for v in jobs_of('11 ').values()):.2f}s "
+        f"(longest job) cooking, old_idle, carried: B=70, explicit actions, 20 steps and 30 "
+        f"across an auto-reset, B2 and B4 max_abs_err={soups_err}")
     if soups_err:
         raise SystemExit("B2 or B4 disagrees with its plain version on soups off the pots")
 
@@ -979,58 +1427,20 @@ def main() -> int:
     # bit for bit against the same games on the CPU, with the card's draws
     t13 = time.perf_counter()
 
-    class Recorded:
-        """The card's draws (a torch.Generator's), kept for the CPU's replay."""
-
-        def __init__(self, inner):
-            self.inner, self.log = inner, {}
-
-        def at(self, t, player):
-            return agents_mod.StepDraws(self, t, player)
-
-        def uniform(self, t, player, name):
-            u = self.log[(t, player, name)] = self.inner.uniform(t, player, name)
-            return u
-
-        def gumbel(self, t, player, name, shape):
-            g = self.log[(t, player, name)] = self.inner.gumbel(t, player, name, shape)
-            return g
-
-    class Replayed(Recorded):
-        """The first `n` games' draws of a recorded run, on the CPU."""
-
-        def __init__(self, log, n):
-            self.log, self.n = log, n
-
-        def uniform(self, t, player, name):
-            return self.log[(t, player, name)][..., :self.n].cpu()
-
-        def gumbel(self, t, player, name, shape):
-            return self.log[(t, player, name)][..., :self.n].cpu()
-
     def greedy_pair(spec_g, device):
-        agent = greedy_agent_fn(agents_mod.make_greedy_human_model(
-            spec_g, build_greedy_tables(spec_g, device=device)))
-        return [agent, agent]
+        return _pair("greedy", spec_g, device)
 
-    def traj_err(card, cpu, n):
-        """Largest difference between the card's first `n` games and the CPU's,
-        over the CPU's steps (the card's first ones)."""
-        def fields(t):
-            return (*t["state"], t["actions"], t["sparse"], t["shaped"], t["events"])
-        steps = cpu["actions"].shape[0]
-        return max_err([torch.from_numpy(np.ascontiguousarray(x[:steps, ..., :n]))
-                        for x in fields(card)], [torch.from_numpy(x) for x in fields(cpu)])
-
-    # the CPU replays the first T_CPU steps of the card's first N_CPU games
-    G, T13, N_CPU, T_CPU, G_CLI = 1024, 400, 8, 200, 4
+    # the CPU's replays of the first T_CPU steps of the card's first N_CPU
+    # games, with the card's draws, are parity jobs: the card's run there is
+    # this one, the same generator's draws
+    G, T13, T_CPU, G_CLI = 1024, 400, 200, 4
     pair_lines, pair_err, greedy_traj = [], 0, None
     # the second layout at 200 steps (the smoke's time budget)
     for name, T_pair in (("cramped_room", T13), ("counter_circuit_o_1order", 200)):
         spec_g = from_layout_name(name)
         pair = greedy_pair(spec_g, dev)
         run_agent_pair(spec_g, pair, num_games=G, horizon=8, device=dev)  # warm-up
-        draws = Recorded(agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(13), G))
+        draws = agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(13), G)
         reset_counts()
         traj, t_pair = synced(lambda: run_agent_pair(spec_g, pair, num_games=G, horizon=T_pair,
                                                      device=dev, draws=draws))
@@ -1038,12 +1448,13 @@ def main() -> int:
         if pair_counts != (T_pair, 0, 0, 0):
             raise SystemExit(f"run_agent_pair launched B1/B2/B3/B4 {pair_counts} times, want "
                              f"B1 {T_pair} times and nothing else")
-        cpu_traj = run_agent_pair(spec_g, greedy_pair(spec_g, "cpu"), num_games=N_CPU,
-                                  horizon=min(T_pair, T_CPU), device="cpu",
-                                  draws=Replayed(draws.log, N_CPU))
-        err = traj_err(traj, cpu_traj, N_CPU)
+        replay = jobs[f"13 greedy {name}"]
+        err = replay["err"]
         pair_err = max(pair_err, err)
         returns = traj["sparse"].sum(axis=(0, 1))
+        if not np.array_equal(traj["actions"][:T_CPU, ..., :N_CPU], replay["actions"]):
+            raise SystemExit(f"the card's greedy pair on {name} acted otherwise in its parity "
+                             "job")
         pair_lines.append(f"{name} {G}x{T_pair} wall {t_pair:.3f}s = {G / t_pair:.1f} games/s = "
                           f"{G * T_pair / t_pair:.0f} env-steps/s, B1 launches={pair_counts[0]}, "
                           f"mean return {returns.mean():.2f}, card vs CPU (first {N_CPU} games, "
@@ -1109,14 +1520,14 @@ def main() -> int:
             return [build_agent(k, spec_cr, tables_cr, device) for k in ("boltzmann", "stay")]
 
         pair = boltzmann_pair(dev)
-        draws = Recorded(agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(2), G))
+        draws = agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(2), G)
         traj_bs, t_bs = synced(lambda: run_agent_pair(spec_cr, pair, num_games=G, horizon=T13,
                                                       device=dev, draws=draws))
-        cpu_bs = run_agent_pair(spec_cr, boltzmann_pair("cpu"), num_games=N_CPU, horizon=T_CPU,
-                                device="cpu", draws=Replayed(draws.log, N_CPU))
-        bs_err = traj_err(traj_bs, cpu_bs, N_CPU)
+        replay = jobs["13 boltzmann+stay cramped_room"]
+        bs_err = replay["err"]
         pair_err = max(pair_err, bs_err)
-        del draws
+        if not np.array_equal(traj_bs["actions"][:T_CPU, ..., :N_CPU], replay["actions"]):
+            raise SystemExit("the card's Boltzmann pair acted otherwise in its parity job")
         log(f"[13b ppo, boltzmann] {time.perf_counter() - t0:.2f}s ppo+greedy {G}x{T13} wall "
             f"{t_pg:.3f}s = {G / t_pg:.1f} games/s, B1 launches={pg_counts[0]}, mean return "
             f"{traj_pg['sparse'].sum(axis=(0, 1)).mean():.2f}; boltzmann+stay {G}x{T13} wall "
@@ -1519,6 +1930,178 @@ def main() -> int:
         raise SystemExit("the --use-lstm CLIs did not train, resume, checkpoint or evaluate")
     log(f"[15 recurrent learner] {time.perf_counter() - t15:.2f}s")
 
+    # ---- 16. the JAX package's trained agents on the card, and the
+    # interactive edge: the converted agents (16a, computed while the parity
+    # jobs ran), eval_artifact cells at 100 games (16b), the recurrent run in
+    # self-play (16c), a demo game of 400 ticks against a trained NPC (16d)
+    # and the demo server (16e)
+    t16 = time.perf_counter()
+    # within 1e-5 of the largest |logit|, phase 15a's tolerance for the
+    # recurrent net: the torsos' float32 convolutions sum in another order on
+    # the card (on an H100, 1.1e-6 of the largest at most for the PPONets,
+    # 1.6e-6 for the recurrent run over two steps)
+    rows16, secs16a = agents16
+    worst = sorted(rows16, key=lambda r: -r[1] / max(1.0, r[2]))[:3]
+    log(f"[16a converted agents] {secs16a:.2f}s (while the parity jobs ran) {len(rows16)} runs "
+        f"of artifacts_torch/ loaded by build_agent on the card and on the CPU, logits on 256 "
+        f"envs of B1's obs x 2 seats (the recurrent run: 2 steps from a zero carry), card vs "
+        f"CPU within 1e-5 of the largest |logit|; the worst three, max_abs_err at the largest: "
+        + "; ".join(f"{run} {e:.3g} at {big:.3g}" for run, e, big in worst))
+    if len(rows16) != 21 or any(e > 1e-5 * max(1.0, big) for _, e, big in rows16):
+        raise SystemExit("a converted agent's logits on the card disagree with the CPU's")
+
+    # 16b: eval_artifact cells, 100 games x 400 each (B1 at 100 envs), each
+    # held against the JAX table's mean by three combined standard errors
+    t0 = time.perf_counter()
+    G16 = 100
+    cells16, cmp16, walls16 = {}, [], []
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        for old, layout16, cells in ((False, "cramped_room",
+                                      ["PPO_SP+PPO_SP", "PPO_BC+BC", "greedy+PPO_SP"]),
+                                     (True, "counter_circuit_o_1order", ["PPO_SP+PPO_SP"])):
+            reset_counts()
+            summary = eval_artifact.main(
+                ["--device", "cuda", "--games", str(G16), "--layouts", layout16, "--cells",
+                 *cells, "--out", os.path.join(tmp, "cells.json")] + (
+                    ["--old-dynamics"] if old else []))
+            if counts()[1:] != (0, 0, 0):
+                raise SystemExit(f"eval_artifact launched B1/B2/B3/B4 {counts()} times")
+            ref_name = ("eval_matrix_results_old_dynamics.json" if old
+                        else "eval_matrix_results.json")
+            with open(os.path.join(ROOT, ref_name)) as f:
+                cmp16 += [(old, *row) for row in eval_artifact.compare(summary["results"],
+                                                                      json.load(f))]
+            for cell, res in summary["results"][layout16].items():
+                cells16[f"{'old ' if old else ''}{layout16} {cell}"] = res
+    cell_txt = "; ".join(
+        f"{k}: {v['mean']:.2f} +- {v['std']:.2f} (JAX {want:.1f}, 3 se {3 * se:.2f}, "
+        f"{'not gated' if ok is None else ('within' if ok else 'OUTSIDE')}), wall "
+        f"{v['wall_s']:.3f}s, B1 launches {v['b1_launches']}"
+        for (k, v), (_, _, _, _, want, se, ok) in zip(cells16.items(), cmp16))
+    log(f"[16b eval_artifact] {time.perf_counter() - t0:.2f}s {G16} games x 400 a cell: "
+        + cell_txt)
+    if any(v["b1_launches"] != 400 or v["games"] != G16 for v in cells16.values()):
+        raise SystemExit("an eval_artifact cell did not launch B1 400 times")
+    if any(ok is False for *_, ok in cmp16):
+        raise SystemExit("an eval_artifact cell on the card lies outside three combined "
+                         "standard errors of the JAX table")
+
+    # 16c: the converted recurrent run in self-play, 8 games x 400 (B1 at 8
+    # envs), a generator seeded 16; its first 8 games' first 50 steps held
+    # bit for bit against the CPU's with the card's draws (a parity job)
+    t0 = time.perf_counter()
+    pair16 = _pair("lstm", spec, dev)
+    reset_counts()
+    traj16, t_l16 = synced(lambda: run_agent_pair(
+        spec, pair16, num_games=8, horizon=400, device=dev,
+        draws=agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(16), 8)))
+    l16_counts = counts()
+    replay = jobs["16c LSTM agent cramped_room"]
+    mean16 = float(traj16["sparse"].sum(axis=(0, 1)).mean())
+    log(f"[16c LSTM agent] {time.perf_counter() - t0:.2f}s artifacts_torch/r4_lstm_cramped in "
+        f"self-play 8x400: wall {t_l16:.3f}s, B1/B2/B3/B4 launches={l16_counts}, mean return "
+        f"{mean16:.2f}; card vs CPU (8 games, 50 steps, the card's draws) "
+        f"max_abs_err={replay['err']}")
+    if l16_counts != (400, 0, 0, 0) or replay["err"] or not np.array_equal(
+            traj16["actions"][:50], replay["actions"]):
+        raise SystemExit("the recurrent agent on the card disagrees with the CPU or its run")
+
+    # 16d: a demo game on cramped_room, a scripted human seat against the
+    # committed PPO_BC agent, 400 ticks by tick(): the NPC's latency a tick
+    # against the 1/6 s tick, B1 at one env a tick; the recorded rows replayed
+    # through the env on the CPU
+    t0 = time.perf_counter()
+    npc = npc_from_kind("artifact:ppo_bc", "cramped_room", device=dev)
+    game = DemoGame("cramped_room", npc_policies={1: npc}, game_time=None, device=dev)
+    npc_ms, act = [], npc.act
+
+    def timed_act(env, seat):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = act(env, seat)  # int(): waits for the card
+        npc_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    npc.act = timed_act
+    human = np.random.RandomState(17).choice(6, size=400, p=PROB)
+    game.activate()
+    tick_ms = []
+    reset_counts()
+    for a in human:
+        game.enqueue_action(0, int(a))
+        t = time.perf_counter()
+        game.tick()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+    demo_counts = counts()
+    rows = game.get_data()
+    replay_env = OvercookedEnv.from_layout_name("cramped_room", 400, device="cpu")
+    demo_err = 0
+    for r in rows:
+        demo_err += r["state"] != json.dumps(replay_env.state_dict())
+        demo_err += replay_env.step(json.loads(r["joint_action"]))[1] != r["reward"]
+    state = batch_reset(spec.layout, 1, dev)  # cramped_room, as the game's
+    act1 = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    _, b1_one_ms = kernel_ms("train_step_kernel<false>", lambda: [
+        fused_train.fused_train_step_tiles(spec.layout, state, act1, horizon=400,
+                                           reset_horizon=401)
+        for _ in range(50)])
+    _, secs = synced(lambda: [fused_train.plain_train_step(lay_dev, state, act1, 400, 401)
+                              for _ in range(10)])
+    b1_one_plain_ms, b1_one_bound_ms = secs * 1e3 / 10, env_bytes / H100_BYTES_PER_S * 1e3
+    p50, p99 = np.percentile(npc_ms, [50, 99])
+    log(f"[16d demo game] {time.perf_counter() - t0:.2f}s cramped_room 400 ticks, artifact:ppo_bc "
+        f"NPC: latency a tick p50 {p50:.3f} ms p99 {p99:.3f} ms (the tick at TICK_FPS 6: "
+        f"{1e3 / 6:.1f} ms), whole tick p50 {np.percentile(tick_ms, 50):.3f} ms p99 "
+        f"{np.percentile(tick_ms, 99):.3f} ms; B1/B2/B3/B4 launches={demo_counts}, B1 at 1 env "
+        f"{b1_one_ms:.4f} ms/launch (profiler) plain {b1_one_plain_ms:.3f} ms bound "
+        f"{b1_one_bound_ms:.7f} ms; score {game.score}, done {game.is_over()}; the {len(rows)} "
+        f"rows replayed through the env on the CPU: {demo_err} differ")
+    if demo_counts != (400, 0, 0, 0) or len(rows) != 400 or not game.is_over() or demo_err:
+        raise SystemExit("the demo game on the card is malformed or disagrees with the CPU")
+
+    # 16e: the port's server on an ephemeral port, its games on the card
+    t0 = time.perf_counter()
+    from overcooked_ai_tpu_torch.demo import server as demo_server
+    import urllib.request
+
+    httpd = demo_server.serve(port=0, device="cuda", host="127.0.0.1")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(path, body=None):
+        req = urllib.request.Request(base + path, method="GET" if body is None else "POST",
+                                     data=None if body is None else json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            raw = resp.read()
+        return raw.decode() if path == "/" else json.loads(raw)
+
+    try:
+        answers = []
+        gid = call("/api/create", {"layout": "cramped_room", "npc": "artifact:ppo_bc",
+                                   "game_time": 60})["game_id"]
+        answers.append("create")
+        answers += ["action"] if call("/api/action", {"game_id": gid, "seat": 0,
+                                                      "action": 5})["ok"] else []
+        deadline, st = time.time() + 30, call(f"/api/state?game_id={gid}")
+        while st["state"]["timestep"] < 3 and time.time() < deadline:
+            time.sleep(0.2)
+            st = call(f"/api/state?game_id={gid}")
+        answers += ["state"] if st["state"]["timestep"] >= 3 else []
+        hid = call("/api/create", {"layout": "cramped_room", "npc": "human"})["game_id"]
+        answers += ["join"] if call("/api/join", {"game_id": hid})["seat"] == 1 else []
+        answers += ["leave"] if all(call("/api/leave", {"game_id": g})["ok"]
+                                    for g in (gid, hid)) else []
+        answers += ["index"] if "canvas" in call("/") else []
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"[16e demo server] {time.perf_counter() - t0:.2f}s on port {httpd.server_address[1]}, "
+        f"games on the card: answered {answers}; the NPC game reached timestep "
+        f"{st['state']['timestep']}")
+    if answers != ["create", "action", "state", "join", "leave", "index"]:
+        raise SystemExit("the demo server did not answer every request")
+    log(f"[16 trained agents and the interactive edge] {time.perf_counter() - t16:.2f}s")
+
     table = {"kernels": [
         {"name": "fused_train_step (B1)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_train.cu",
@@ -1531,6 +2114,9 @@ def main() -> int:
          "train_rollout_random_launches": trr_launches,
          "ppo_bc_phi_launches": b1_bc_launches, "bc_eval_launches": b1_eval_bc,
          "lstm_launches": b1_lstm_launches, "lstm_eval_launches": b1_eval_lstm,
+         "eval_artifact_launches": 400, "single_env_launches": demo_counts[0],
+         "single_env_ms": b1_one_ms, "single_env_plain_ms": b1_one_plain_ms,
+         "single_env_bound_ms": b1_one_bound_ms,
          "eval_ms": b1_time[8][0],
          "eval_plain_ms": b1_time[8][1], "eval_bound_ms": b1_time[8][2],
          "tile_envs": fused_train.TILE_ENVS, "block_threads": fused_train.BLOCK_THREADS,
@@ -1564,8 +2150,9 @@ def main() -> int:
          "registers_spills": {k: v for k, v in rollout_regs.items() if ",1," in k},
          "entry_outside_ms": b4_outside_ms},
     ]}
-    log(f"[done] {time.perf_counter() - t_start:.1f}s wall; profiler sessions made again for "
-        f"want of a record: {len(redone)} {sorted(set(redone))}")
+    log(f"[done] profiler sessions made again for want of a record: {len(redone)} "
+        f"{sorted(set(redone))}")
+    log(f"[wall] {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -3,13 +3,17 @@
     build_agent(kind, spec, tables, device="cuda") -> AgentFn
 
 kinds: greedy | boltzmann | random | stay | ppo:<ckpt_dir> | bc:<model_dir>.
-A `ppo:` directory holds the port's own checkpoints (`training/checkpoint.py`:
-config.json and step_{n}.pt); the JAX package's orbax checkpoints need JAX
-to read and are not read here. A recurrent (`use_lstm`) checkpoint plays as
-a stateful agent whose carry is the LSTM's (c, h), one row per game. A
+A `ppo:` directory holds a checkpoint in the port's format
+(`training/checkpoint.py`: config.json and step_{n}.pt): one the port
+trained, or one of the JAX package's runs converted on a host with JAX by
+`convert_jax_checkpoints.py` (the committed ones are under
+`artifacts_torch/`). An orbax directory of the JAX package raises
+ValueError, naming the converter. A recurrent (`use_lstm`) checkpoint plays
+as a stateful agent whose carry is the LSTM's (c, h), one row per game. A
 `bc:` directory is the port's BC model or the JAX package's
 (`training/bc.load_bc_model` reads both), played as a stateless agent.
-Shared by the eval CLIs (`cli/eval_matrix.py`, `cli/eval_pool.py`).
+Shared by the eval CLIs (`cli/eval_matrix.py`, `cli/eval_pool.py`,
+`cli/eval_artifact.py`) and the demo's NPCs (`demo/game.py`).
 """
 
 from __future__ import annotations

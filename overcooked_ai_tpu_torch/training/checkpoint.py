@@ -61,8 +61,9 @@ def load_policy_net(ckpt_dir, height: int, width: int, device="cuda"):
     step = meta["latest_step"]
     path = os.path.join(ckpt_dir, f"step_{step}.pt")
     if not os.path.exists(path):
-        raise ValueError(f"{ckpt_dir} holds no torch checkpoint step_{step}.pt (the port "
-                         "does not read the JAX package's orbax checkpoints)")
+        raise ValueError(f"{ckpt_dir} holds no torch checkpoint step_{step}.pt (a JAX orbax "
+                         "checkpoint? convert it on a host with JAX: python "
+                         "convert_jax_checkpoints.py <run dir>)")
     kind = LSTMPPONet if meta.get("use_lstm") else PPONet
     net = kind(NetConfig(**meta["config"]["net"]), height, width)
     saved = torch.load(path, map_location="cpu", weights_only=True)["net"]
