@@ -60,7 +60,7 @@ Phases, one line each with its seconds:
      traced 50-step run's device split; PPO (`PPONet` at
      NetConfig() widths, random weights from a seed, saved as a checkpoint
      and loaded through `build_agent("ppo:<dir>")`) vs greedy and
-     Boltzmann vs stay; the reference trajectory format and
+     Boltzmann vs stay at 1024 games x 200; the reference trajectory format and
      `check_trajectories` on 4 games; the two eval CLIs in process;
  14. human-aware PPO: featurize, phi and the committed BC proxy
      (`runs/r4_bc/bc_proxy_cramped_room`, read by the port's msgpack reader)
@@ -69,7 +69,7 @@ Phases, one line each with its seconds:
      `train_iteration` at the phase 12 shape (bc_schedule 0.5 against the
      proxy, use_phi, phi_event_mix), its wall, its split by CUDA events, a
      traced 16-step rollout's device idle share and the eval with the BC
-     seat; one pool iteration (200 steps, one epoch) with the pool partner
+     seat at 8 x 200; one pool iteration (200 steps, one epoch) with the pool partner
      and the pool phi; a small PPO_BC + phi iteration on the card against the CPU; the
      `train_bc_proxy`, `train_ppo --bc-model --use-phi` and `eval_matrix`
      (a `bc:` agent) CLIs in process;
@@ -81,7 +81,8 @@ Phases, one line each with its seconds:
      20 steps and 2 epochs at the same widths; one pool iteration
      (one epoch, B3 400 launches); a 32 x 40 iteration on the card against
      the CPU learner; `make_ppo_lstm_eval` at 8 x 400; `train_ppo
-     --use-lstm` (then `--resume`), `train_ppo_from_params --use-lstm` and
+     --use-lstm` (then `--resume`), `train_ppo_from_params --use-lstm` (one
+     iteration) and
      `eval_matrix` with the LSTM checkpoint as a `ppo:` agent, in process.
  16. the JAX package's trained agents and the interactive edge: (a) the 21
      runs converted by convert_jax_checkpoints.py (`artifacts_torch/`)
@@ -97,11 +98,27 @@ Phases, one line each with its seconds:
      B1 at one env (400 launches and its time a launch), the rows replayed
      through the env on the CPU; (e) the demo server on an ephemeral port
      answering create, action, state, join, leave and the index page.
+ 17. data parallelism and `core.env.rollout`: (a) `make_ppo(mesh=...)` on a
+     one-rank NCCL mesh in a rank process (`parallel/dryrun.py`), 32 x 50,
+     against the meshless iteration of the same seed: the rollout's
+     integers bit for bit, the params within 1e-5; (b) two gloo ranks on
+     the one card at phase 12's width (2048 envs, 1024 a rank, x 400 steps,
+     one epoch) on cramped_room (B1 400 launches a rank) and on 12b's pool
+     (B3 400 a rank): each rank's wall split into rollout, GAE, SGD and
+     all-reduce by CUDA events, the ranks' params bit for bit, and near
+     the one-process iteration: within 3 times the drift of that iteration
+     with its minibatches' rows reversed, or 1e-5 (two ranks on one card
+     measure function, not scaling); (c) `core.env.rollout` under a seeded
+     PPONet at 2048 x 400 (B1 400 launches), a 64 x 120 run across an
+     auto-reset held bit for bit against the CPU's replay of its actions,
+     and B1's refusals of 1 player and of a horizon past its stamp bound.
 The kernel-against-plain holds of phases 3, 4, 6, 7, 8 and 11, and the CPU
-replays of phases 13 and 16c, are parity jobs: worker processes (one torch
-thread each, the plain versions on the CPU except at 16384 envs) started
-together after the build and collected before the first timed phase; 16a
-runs meanwhile. Each phase line gives its longest job's seconds.
+replays of phases 13, 16c and 17c, are parity jobs: worker processes (one
+torch thread each, the plain versions on the CPU except at 16384 envs)
+started together after the build and collected before the first timed
+phase; 16a runs meanwhile. Phase 17's rank processes start once the
+parity jobs are collected and prepare behind phases 5-16, then wait for
+phase 17's go. Each phase line gives its longest job's seconds.
 Phase 5 also times `train_rollout_random` (B1 under uniform-random play) at
 the JAX bench.py's 16384 envs x 4000 steps.
 B1's and B3's times are the profiler's device time (a timing whose session
@@ -115,6 +132,7 @@ failure exits non-zero. Needs one CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -689,9 +707,91 @@ def artifact_logits(dev):
     return rows, time.perf_counter() - t0
 
 
+def ppo_policy(net, layout, horizon, log=None):
+    """A `core.env.rollout` policy: `net`'s Gumbel-max actions from the
+    generator on the state's encoding (`layout` on the state's device);
+    `log` keeps each step's actions."""
+    import torch
+
+    from overcooked_ai_tpu_torch.core.encoding import encode_nhwc
+    from overcooked_ai_tpu_torch.training.ppo import gumbel_sample
+
+    def policy(gen, _layout, state):
+        logits, _ = net(encode_nhwc(layout, state, horizon))
+        act = gumbel_sample(logits, gen).to(torch.int32).view(2, -1)
+        if log is not None:
+            log.append(act)
+        return act
+
+    return policy
+
+
+def job_env_rollout():
+    """17c's hold: `core.env.rollout` on the card, 64 envs x 120 steps of
+    cramped_room at horizon 100 (crossing an auto-reset) under a seeded
+    PPONet, against the CPU's plain rollout replaying the card's actions, on
+    every `Timestep` leaf."""
+    import torch
+
+    from overcooked_ai_tpu_torch.core.env import batch_reset, rollout
+    from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
+    from overcooked_ai_tpu_torch.ops import fused_train
+    from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
+
+    dev, B, T, horizon = _card(), 64, 120, 100
+    spec = from_layout_name("cramped_room")
+    net = PPONet(NetConfig(), spec.height, spec.width,
+                 generator=torch.Generator().manual_seed(17)).to(dev)
+    acts = []
+    fused_train.launches = 0
+    with torch.no_grad():
+        _, card = rollout(spec.layout, batch_reset(spec.layout, B, dev),
+                          torch.Generator(device=dev).manual_seed(17), T,
+                          ppo_policy(net, layout_on(spec.layout, dev), horizon, acts), horizon)
+    launches = fused_train.launches
+    replay = iter([a.cpu() for a in acts])
+    _, cpu = rollout(spec.layout, batch_reset(spec.layout, B, "cpu"), None, T,
+                     lambda *_: next(replay), horizon)
+
+    def leaves(tr):
+        return [*tr.state, *tr.obs_state, *tr[2:]]
+
+    return {"err": cpu_max_err(leaves(card), leaves(cpu)), "launches": launches,
+            "resets": int(cpu.done.sum()), "events": int(cpu.events.sum())}
+
+
+# phase 17's data-parallel cases (`parallel/dryrun.py`): a one-rank NCCL
+# mesh at 12c's shape; two gloo ranks on the one card at phase 12's width,
+# one epoch, on cramped_room and on 12b's pool and regenerated pool
+DP_ONE = [dict(name="one_rank", layout="cramped_room", seed=3, keep_rollout=True,
+               config=dict(num_envs=32, horizon=50, num_sgd_iter=2, sgd_minibatch_size=400))]
+DP_CONFIG = dict(num_envs=2048, horizon=400, sgd_minibatch_size=32768, num_sgd_iter=1)
+POOL_GEN = {"outer_shape": [5, 4], "prop_empty": 0.95, "prop_feats": 0.1}  # as layout_gen's
+DP_TWO = [dict(name="fixed", layout="cramped_room", seed=0, config=DP_CONFIG),
+          dict(name="pool", pool={"n": 64, "seed": 0, "prefix": "bench_", "generator": POOL_GEN},
+               regen={"n": 64, "seed": 1, "prefix": "regen_", "generator": POOL_GEN}, seed=0,
+               config=DP_CONFIG)]
+DP_TIMEOUT = 300  # seconds for the two ranks' iterations after the go
+DP_FLOOR = 3  # 17b's bound on the ranks' drift, in drifts of a reordering (below)
+
+
+def start_ranks(tmp):
+    """Phase 17's rank processes: 17a's one NCCL rank and 17b's two gloo
+    ranks join, build their meshes and prepare their cases, then each waits
+    for its go. Returns {phase: (processes, directory, go file)}."""
+    from overcooked_ai_tpu_torch.parallel import dryrun
+
+    out = {}
+    for phase, cases, nproc, backend in (("17a", DP_ONE, 1, None), ("17b", DP_TWO, 2, "gloo")):
+        wdir, go = os.path.join(tmp, phase), os.path.join(tmp, f"go{phase}")
+        out[phase] = (dryrun.launch(cases, nproc, wdir, backend, "cuda", go), wdir, go)
+    return out
+
+
 def parity_jobs():
     """(label, function, args) of every parity job, the longest first."""
-    return ([("6 B2 16384x450", job_b2_main, ()), ("7 B4 16384x450", job_b4_main, ()),
+    return ([("17c env.rollout cramped_room", job_env_rollout, ()),
+             ("6 B2 16384x450", job_b2_main, ()), ("7 B4 16384x450", job_b4_main, ()),
              ("13 greedy cramped_room", job_pair_replay,
               ("greedy", "cramped_room", 1024, 13, 200)),
              ("13 boltzmann+stay cramped_room", job_pair_replay,
@@ -761,7 +861,7 @@ def main() -> int:
     )
     from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP, TERRAIN_COUNTER, TERRAIN_POT
     from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS
-    from overcooked_ai_tpu_torch.core.env import batch_reset, rollout_random
+    from overcooked_ai_tpu_torch.core.env import batch_reset, rollout, rollout_random
     from overcooked_ai_tpu_torch.core.featurize import featurize_batch
     from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
     from overcooked_ai_tpu_torch.core.layout_generator import stack_layouts
@@ -770,6 +870,7 @@ def main() -> int:
     from overcooked_ai_tpu_torch.demo.game import DemoGame, npc_from_kind
     from overcooked_ai_tpu_torch.interop.single_env import OvercookedEnv
     from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
+    from overcooked_ai_tpu_torch.parallel import dryrun
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
     from overcooked_ai_tpu_torch.training.bc import (
         bc_policy_batch,
@@ -856,6 +957,20 @@ def main() -> int:
         f"(one torch thread each, started beside phases 1-2 in "
         f"{max(x for x in start_s if x is not None):.2f}s at most), seconds each: "
         + json.dumps({k: round(v["secs"], 2) for k, v in jobs.items()}))
+
+    # phase 17's ranks start now: their imports, the card's contexts and
+    # their cases' preparation run on the cores the parity jobs left, behind
+    # phases 5-16, and their iterations wait for phase 17's go. Any rank left
+    # at exit is killed
+    dp_tmp = tempfile.TemporaryDirectory()
+    ranks17 = start_ranks(dp_tmp.name)
+
+    def stop_ranks():
+        for procs, _, _ in ranks17.values():
+            dryrun.stop(procs)
+        dp_tmp.cleanup()
+
+    atexit.register(stop_ranks)
 
     def jobs_of(prefix):
         return {k: v for k, v in jobs.items() if k.startswith(prefix)}
@@ -1343,12 +1458,13 @@ def main() -> int:
     init_pool, train_pool = make_ppo(specs64, dataclasses.replace(cfg_it, num_sgd_iter=1),
                                      device=dev)
     ts_pool = init_pool(0)
-    fresh = stack_layouts([layout_gen((5, 4), 1).generate_spec(name=f"regen_{i}")
-                           for i in range(64)])
+    regen = layout_gen((5, 4), 1)  # one generator: 64 fresh layouts
+    fresh = stack_layouts([regen.generate_spec(name=f"regen_{i}") for i in range(64)])
     reset_counts()
     (ts_pool, m_pool), t_pool_iter = synced(lambda: train_pool(ts_pool, pool=fresh))
     pool_iter_counts = counts()
     b3_iter_launches = pool_iter_counts[2]
+    pool_one = {k: v.cpu() for k, v in ts_pool.net.state_dict().items()}  # 17b's reference
     if pool_iter_counts != (0, 0, cfg_it.horizon, 0):
         raise SystemExit(f"pool train_iteration launched B1/B2/B3/B4 {pool_iter_counts} times, "
                          f"want B3 {cfg_it.horizon} times and nothing else")
@@ -1434,6 +1550,7 @@ def main() -> int:
     # games, with the card's draws, are parity jobs: the card's run there is
     # this one, the same generator's draws
     G, T13, T_CPU, G_CLI = 1024, 400, 200, 4
+    T13B = 200  # 13b's pairs, cut to the CPU replay's steps (the smoke's time budget)
     pair_lines, pair_err, greedy_traj = [], 0, None
     # the second layout at 200 steps (the smoke's time budget)
     for name, T_pair in (("cramped_room", T13), ("counter_circuit_o_1order", 200)):
@@ -1512,7 +1629,7 @@ def main() -> int:
         greedy = build_agent("greedy", spec_cr, tables_cr, dev)
         reset_counts()
         traj_pg, t_pg = synced(lambda: run_agent_pair(spec_cr, [ppo, greedy], num_games=G,
-                                                      horizon=T13, seed=1, device=dev))
+                                                      horizon=T13B, seed=1, device=dev))
         pg_counts = counts()
         # Boltzmann vs stay, its first games held against the CPU's with the
         # card's Gumbel draws (the goal and low-level argmaxes)
@@ -1521,20 +1638,20 @@ def main() -> int:
 
         pair = boltzmann_pair(dev)
         draws = agents_mod.GeneratorDraws(torch.Generator(device=dev).manual_seed(2), G)
-        traj_bs, t_bs = synced(lambda: run_agent_pair(spec_cr, pair, num_games=G, horizon=T13,
+        traj_bs, t_bs = synced(lambda: run_agent_pair(spec_cr, pair, num_games=G, horizon=T13B,
                                                       device=dev, draws=draws))
         replay = jobs["13 boltzmann+stay cramped_room"]
         bs_err = replay["err"]
         pair_err = max(pair_err, bs_err)
         if not np.array_equal(traj_bs["actions"][:T_CPU, ..., :N_CPU], replay["actions"]):
             raise SystemExit("the card's Boltzmann pair acted otherwise in its parity job")
-        log(f"[13b ppo, boltzmann] {time.perf_counter() - t0:.2f}s ppo+greedy {G}x{T13} wall "
+        log(f"[13b ppo, boltzmann] {time.perf_counter() - t0:.2f}s ppo+greedy {G}x{T13B} wall "
             f"{t_pg:.3f}s = {G / t_pg:.1f} games/s, B1 launches={pg_counts[0]}, mean return "
-            f"{traj_pg['sparse'].sum(axis=(0, 1)).mean():.2f}; boltzmann+stay {G}x{T13} wall "
+            f"{traj_pg['sparse'].sum(axis=(0, 1)).mean():.2f}; boltzmann+stay {G}x{T13B} wall "
             f"{t_bs:.3f}s = {G / t_bs:.1f} games/s, mean return "
             f"{traj_bs['sparse'].sum(axis=(0, 1)).mean():.2f}, card vs CPU (first {N_CPU} "
             f"games, {T_CPU} steps) max_abs_err={bs_err}")
-        if pg_counts != (T13, 0, 0, 0) or not all(
+        if pg_counts != (T13B, 0, 0, 0) or not all(
                 ((t["actions"] >= 0) & (t["actions"] < 6)).all() for t in (traj_pg, traj_bs)):
             raise SystemExit("the PPO or Boltzmann pair is malformed")
         if bs_err:
@@ -1657,12 +1774,13 @@ def main() -> int:
             spec, net, PPOConfig(num_envs=2048, horizon=16, use_phi=True, phi_event_mix=True),
             gen, dev, potential_fn=phi_cr, bc_policy=partner, bc_factor=0.5))
     busy_bc = sum(dev_time(e) for e in prof.key_averages())
-    # the eval with the partner in seat 1, 8 games x 400 (B1 at 8 envs)
-    eval_bc = make_ppo_eval(spec, num_games=8, horizon=400, device=dev, bc_policy=partner)
+    # the eval with the partner in seat 1, 8 games x 200 (B1 at 8 envs; cut
+    # from 400 steps for the smoke's time budget)
+    eval_bc = make_ppo_eval(spec, num_games=8, horizon=200, device=dev, bc_policy=partner)
     reset_counts()
     mean_bc, t_eval_bc = synced(lambda: eval_bc(ts_bc.net, gen))
     b1_eval_bc = counts()[0]
-    if b1_eval_bc != 400:
+    if b1_eval_bc != 200:
         raise SystemExit(f"make_ppo_eval with the BC seat launched B1 {b1_eval_bc} times")
     log(f"[14b PPO_BC + phi] {time.perf_counter() - t0:.2f}s train_iteration cramped_room "
         f"2048x400, minibatch 65536 samples x 8 epochs, bc_schedule 0.5 (the committed proxy), "
@@ -1673,7 +1791,7 @@ def main() -> int:
         f"{bc_metrics['bc_sample_fraction']:.4f}; episode_total_reward "
         f"{bc_metrics['episode_total_reward']:.3f}; traced rollout 2048x16 wall "
         f"{t_bc_prof * 1e3:.1f}ms device busy {busy_bc / 1e3:.1f}ms (idle "
-        f"{1 - busy_bc / 1e6 / t_bc_prof:.1%}); eval with the BC seat 8x400 {t_eval_bc:.3f}s "
+        f"{1 - busy_bc / 1e6 / t_bc_prof:.1%}); eval with the BC seat 8x200 {t_eval_bc:.3f}s "
         f"mean_sparse={mean_bc}, B1 launches={b1_eval_bc}")
 
     # the pool: the pool partner (each lane featurizes on its own layout) and
@@ -1913,7 +2031,7 @@ def main() -> int:
             lstm_meta = json.load(f)
         pool_run = os.path.join(tmp, "lstm_pool")
         train_ppo_from_params.main(["--device", "cuda", "--local-testing", "--use-lstm",
-                                    "--iters", "2", "--out", pool_run])
+                                    "--iters", "1", "--out", pool_run])
         with open(os.path.join(pool_run, "config.json")) as f:
             lstm_pool_meta = json.load(f)
         matrix_l = eval_matrix.main(["--device", "cuda", "--layouts", "cramped_room",
@@ -1921,12 +2039,12 @@ def main() -> int:
                                      "--horizon", "50", "--out", os.path.join(tmp, "m.json")])
     log(f"[15f CLIs] {time.perf_counter() - t0:.2f}s train_ppo --use-lstm --local-testing 1 "
         f"iter then --resume 1: latest_step={lstm_meta['latest_step']}, use_lstm="
-        f"{lstm_meta['use_lstm']}; train_ppo_from_params --use-lstm 2 iters: latest_step="
+        f"{lstm_meta['use_lstm']}; train_ppo_from_params --use-lstm 1 iter: latest_step="
         f"{lstm_pool_meta['latest_step']}; eval_matrix ppo:<the LSTM run> + greedy (2 games x "
         f"50 steps): {len(matrix_l)} pairs; {len(out.getvalue().splitlines())} lines of their "
         f"output")
     if (lstm_meta["latest_step"], lstm_meta["use_lstm"], lstm_pool_meta["latest_step"],
-            lstm_pool_meta["use_lstm"], len(matrix_l)) != (2, True, 2, True, 4):
+            lstm_pool_meta["use_lstm"], len(matrix_l)) != (2, True, 1, True, 4):
         raise SystemExit("the --use-lstm CLIs did not train, resume, checkpoint or evaluate")
     log(f"[15 recurrent learner] {time.perf_counter() - t15:.2f}s")
 
@@ -2102,6 +2220,132 @@ def main() -> int:
         raise SystemExit("the demo server did not answer every request")
     log(f"[16 trained agents and the interactive edge] {time.perf_counter() - t16:.2f}s")
 
+    # ---- 17. data parallelism (`make_ppo(mesh=...)` through
+    # parallel/dryrun.py's ranks, started after the parity jobs) and
+    # `core.env.rollout`
+    t17 = time.perf_counter()
+    # this process's references first: 17a's meshless iteration, then 17b's
+    # one-process iteration of the same seed and shape (12b's for the pool)
+    # and the drift of a mere reordering of its sums, the same iteration with
+    # each minibatch's rows reversed. 17a's rank runs meanwhile (nothing is
+    # timed here); 17b's ranks after, alone on the card
+    init_m, train_m = make_ppo(spec, PPOConfig(**DP_ONE[0]["config"]), device=dev)
+    kept = {}
+    ts_m, _ = train_m(init_m(DP_ONE[0]["seed"]), on_phase=kept.setdefault)
+    procs_a, wdir_a, go_a = ranks17["17a"]
+    open(go_a, "w").close()
+    init_f, train_f = make_ppo(spec, PPOConfig(**DP_CONFIG), device=dev)
+    ts_f, _ = train_f(init_f(0))
+    ts_r = init_f(0)
+    n17, mb17 = 2 * DP_CONFIG["num_envs"] * 400, 2 * DP_CONFIG["sgd_minibatch_size"]
+
+    def reversed_rows(perm):  # the generator's permutation, each minibatch reversed
+        k = n17 // mb17 * mb17
+        return torch.cat([perm[:k].view(-1, mb17).flip(1).reshape(-1), perm[k:]])
+
+    ts_r, _ = train_f(ts_r, perm_fn=lambda _e: reversed_rows(
+        torch.randperm(n17, generator=ts_r.generator, device=dev)))
+
+    # 17a: the one-rank NCCL mesh against the meshless iteration: the
+    # rollout's integers bit for bit, the params within 12c's 1e-5 (cuDNN's
+    # weight gradient may sum in another order in another process)
+    one = dryrun.wait(procs_a, wdir_a, DP_TIMEOUT)[0]["one_rank"]
+    t_refs = time.perf_counter() - t17
+    one_int_err = cpu_max_err([getattr(kept["rollout"], f) for f in dryrun.ROLLOUT_INTS],
+                              [one["rollout"][f] for f in dryrun.ROLLOUT_INTS])
+    one_param_err = max(float((one["params"][k] - v.cpu()).abs().max())
+                        for k, v in ts_m.net.state_dict().items())
+    log(f"[17a one-rank NCCL mesh] {t_refs:.2f}s with 17b's references "
+        f"make_ppo(mesh=make_mesh()) 32x50, 2 epochs, in a rank process (NCCL, "
+        f"{one['all_reduces']} all-reduces) against the meshless iteration of seed 3 here: "
+        f"rollout integers max_abs_err={one_int_err}, params max_abs_err {one_param_err:.3g}; "
+        f"B1/B2/B3/B4 launches={one['launches']}")
+    if one_int_err or one_param_err > 1e-5 or one["launches"] != [50, 0, 0, 0]:
+        raise SystemExit("the one-rank mesh disagrees with the meshless iteration")
+
+    # 17b: two gloo ranks on the one card at phase 12's width, one epoch each
+    # on cramped_room and on 12b's pool. The ranks sum in another order than
+    # one process (their halves of each minibatch, the rollout's forward at
+    # 2048 rows, the advantages' partial sums), so they are held within
+    # DP_FLOOR times the reordering's drift, or 1e-5 if that is larger
+    # (PERF.md §6: at this shape reversing the rows alone moved the
+    # params by 1.62e-5, the ranks by 1.0e-5-2.4e-5)
+    t0 = time.perf_counter()
+    procs, wdir, go = ranks17["17b"]
+    open(go, "w").close()
+    two = dryrun.wait(procs, wdir, DP_TIMEOUT)
+    t_ranks = time.perf_counter() - t0
+    refs = {"fixed": {k: v.cpu() for k, v in ts_f.net.state_dict().items()}, "pool": pool_one}
+    dp_err = {name: max(float((two[0][name]["params"][k] - v).abs().max())
+                        for k, v in ref.items()) for name, ref in refs.items()}
+    floor = max(float((v.cpu() - refs["fixed"][k]).abs().max())
+                for k, v in ts_r.net.state_dict().items())
+    dp_tol = max(1e-5, DP_FLOOR * floor)
+    rank_diff = dryrun.disagreement(two)
+    want_launches = {"fixed": [400, 0, 0, 0], "pool": [0, 0, 400, 0]}
+    rank_txt = "; ".join(
+        f"{name} rank {r} envs {res[name]['envs']}: wall {res[name]['wall_s']:.3f}s split ms "
+        + json.dumps({k: round(v, 1) for k, v in res[name]["split_ms"].items()})
+        + f" ({res[name]['all_reduces']} all-reduces), B1/B2/B3/B4 launches="
+        f"{res[name]['launches']}, max memory {res[name]['max_memory_bytes'] / 2**30:.2f} GiB"
+        for name in want_launches for r, res in enumerate(two))
+    log(f"[17b two gloo ranks] {t_ranks:.2f}s after the go make_ppo(mesh=...) 2048x400, "
+        f"minibatch 32768 env steps, 1 epoch, over gloo on one card (two ranks on one card "
+        f"measure function, not scaling): {rank_txt}; flat gradient buffer "
+        f"{two[0]['fixed']['grad_bytes']} bytes; ranks' params and kl_coeff max |diff| "
+        f"{json.dumps(rank_diff)}; rank 0 against the one-process iteration (fixed here, pool "
+        f"12b's) params max_abs_err "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in dp_err.items()})
+        + f", the one-process iteration with its minibatches' rows reversed {floor:.3g} "
+        f"(held within {dp_tol:.3g})")
+    if any(v for v in rank_diff.values()) or any(v > dp_tol for v in dp_err.values()) or any(
+            res[name]["launches"] != want for res in two for name, want in want_launches.items()):
+        raise SystemExit("the data-parallel ranks disagree, or with the one-process iteration")
+
+    # 17c: core.env.rollout under a seeded PPONet with Gumbel actions, 2048
+    # envs x 400 steps (one B1 launch a step); a 64 x 120 run across an
+    # auto-reset held against the CPU's replay (a parity job); and B1's
+    # refusals of what it cannot step
+    t0 = time.perf_counter()
+    lay17, h_max = spec.layout, fused_train.max_horizon(spec.height * spec.width)
+    net17 = PPONet(NetConfig(), spec.height, spec.width,
+                   generator=torch.Generator().manual_seed(17)).to(dev)
+    gen17 = torch.Generator(device=dev).manual_seed(17)
+    reset_counts()
+    with torch.no_grad():
+        (final17, traj17), t_roll = synced(lambda: rollout(
+            lay17, batch_reset(lay17, 2048, dev), gen17, 400, ppo_policy(net17, lay_dev, 400),
+            400))
+    roll_counts = counts()
+    refused = 0
+    for bad_spec, bad_horizon in ((spec, h_max + 1),
+                                  (from_layout_name("cramped_room_single"), 400)):
+        try:
+            rollout(bad_spec.layout, batch_reset(bad_spec.layout, 8, dev), gen17, 1,
+                    lambda *_: None, bad_horizon)
+        except ValueError:
+            refused += 1
+    job17 = jobs["17c env.rollout cramped_room"]
+    ok17 = (roll_counts == (400, 0, 0, 0) and traj17.state.obj.shape[0] == 400
+            and bool(traj17.done[-1].all()) and not bool(traj17.done[:-1].any())
+            and int(final17.t.max()) == 0 and int(traj17.events.sum()) > 0 and refused == 2
+            and job17["launches"] == 120 and job17["resets"] == 64)
+    log(f"[17c env.rollout] {time.perf_counter() - t0:.2f}s cramped_room 2048x400 under a "
+        f"seeded PPONet: wall {t_roll:.3f}s = {2048 * 400 / t_roll:.0f} env-steps/s, "
+        f"B1/B2/B3/B4 launches={roll_counts}, events {int(traj17.events.sum())}, sparse "
+        f"{int(traj17.sparse_reward.sum())}; 64x120 at horizon 100 (an auto-reset) card vs "
+        f"CPU replay of its actions ({job17['secs']:.2f}s, a parity job, B1 "
+        f"{job17['launches']} launches, {job17['resets']} resets) every Timestep leaf "
+        f"max_abs_err={job17['err']}; refused a horizon past {h_max} and "
+        f"1 player: {refused}/2")
+    if not ok17 or job17["err"]:
+        raise SystemExit("core.env.rollout on the card is malformed or disagrees with the CPU")
+    # the ranks closed meanwhile: each must have ended cleanly
+    codes17 = {phase: dryrun.stop(procs, grace=60) for phase, (procs, _, _) in ranks17.items()}
+    if any(c for codes in codes17.values() for c in codes):
+        raise SystemExit(f"a rank of phase 17 ended with a failure: exit codes {codes17}")
+    log(f"[17 data parallelism and env.rollout] {time.perf_counter() - t17:.2f}s")
+
     table = {"kernels": [
         {"name": "fused_train_step (B1)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_train.cu",
@@ -2114,6 +2358,8 @@ def main() -> int:
          "train_rollout_random_launches": trr_launches,
          "ppo_bc_phi_launches": b1_bc_launches, "bc_eval_launches": b1_eval_bc,
          "lstm_launches": b1_lstm_launches, "lstm_eval_launches": b1_eval_lstm,
+         "dp_rank_launches": two[0]["fixed"]["launches"][0],
+         "env_rollout_launches": roll_counts[0],
          "eval_artifact_launches": 400, "single_env_launches": demo_counts[0],
          "single_env_ms": b1_one_ms, "single_env_plain_ms": b1_one_plain_ms,
          "single_env_bound_ms": b1_one_bound_ms,
@@ -2137,7 +2383,7 @@ def main() -> int:
          "max_abs_err": b3_err, "ms": b3_ms, "plain_ms": b3_plain_ms,
          "bound_ms": b3_bound_ms, "bound_by": "bytes", "library_ms": None,
          "collect_launches": b3_launches, "ppo_bc_phi_launches": b3_bc_launches,
-         "lstm_launches": b3_lstm_launches},
+         "lstm_launches": b3_lstm_launches, "dp_rank_launches": two[0]["pool"]["launches"][2]},
         {"name": "fused_pool_rollout (B4)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_pool_rollout.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_pool.py:286", "launches": b4_launches,

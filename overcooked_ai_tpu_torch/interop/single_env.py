@@ -28,17 +28,16 @@ from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS, lossless_encode
 from overcooked_ai_tpu_torch.core.env import batch_reset, env_step
 from overcooked_ai_tpu_torch.core.layout import LayoutSpec, from_layout_name, layout_on
 from overcooked_ai_tpu_torch.core.state import State, state_to_dict
-from overcooked_ai_tpu_torch.ops import _build
+from overcooked_ai_tpu_torch.ops import fused_train
 from overcooked_ai_tpu_torch.ops.fused_train import fused_train_step_tiles, pack_events
 
 DEFAULT_HORIZON = 400
 
 
 def max_horizon(spec: LayoutSpec) -> int:
-    """The longest episode B1 plays exactly: player i placing an object at
-    step t stamps it t * P + i + 1 (`core/step.py`), at most 2 * horizon in
-    a 2-player episode, and B1 keeps stamps up to 2047 - HW."""
-    return (_build.SEQ_MAX - spec.height * spec.width) // 2
+    """The longest episode B1 plays exactly on `spec`
+    (`ops.fused_train.max_horizon`)."""
+    return fused_train.max_horizon(spec.height * spec.width)
 
 
 def host_state(state: State) -> State:

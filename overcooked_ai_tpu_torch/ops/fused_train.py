@@ -99,6 +99,14 @@ def stage_wide(plan: TilePlan, batch: int, rows) -> bool:
     return batch % 4 == 0 and plan.envs % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in rows)
 
 
+def max_horizon(num_cells: int) -> int:
+    """The longest episode B1 plays exactly on a layout of `num_cells`
+    cells: player i placing an object at step t stamps it t * P + i + 1
+    (`core/step.py`), at most 2 * horizon in a 2-player episode, and B1
+    keeps stamps up to 2047 - HW."""
+    return (_build.SEQ_MAX - num_cells) // 2
+
+
 def pack_events(events: torch.Tensor) -> torch.Tensor:
     """(NUM_EVENTS, ...) bool -> (...) int32 bitmasks, EVENT_TYPES bit order."""
     bits = torch.arange(events.shape[0], device=events.device)

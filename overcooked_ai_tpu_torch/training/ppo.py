@@ -43,6 +43,18 @@ an explicit `torch.Generator`; JAX's draws differ, so the tests feed both
 sides the same actions through `sample_fn`, the same lanes through
 `pool_idx`, the same permutations through `perm_fn`, the same BC seats
 through `bc_draws` and the same partner actions through `bc_sample_fn`.
+
+Data parallelism (`make_ppo(mesh=...)`, `parallel/mesh.py`; the JAX
+learner's `shard_map` over its fused step): each of the mesh's n ranks
+steps envs [rank * B/n, (rank + 1) * B/n) with its own B1 or B3 launches,
+and every random tensor is drawn at its global shape from the same
+generator stream on every rank, each rank taking its own rows. So the
+sharded iteration is the one-process iteration: each epoch permutes all
+2 * B * T samples, a minibatch is a slice of that permutation, each rank
+sums the loss over its members of it divided by the minibatch's global
+mask count, and the gradients are all-reduced before the global-norm clip
+and Adam; the advantage standardisation, the last minibatch's loss terms
+(and so the KL update) and the metrics are global sums.
 """
 
 from __future__ import annotations
@@ -103,7 +115,8 @@ class PPOConfig:
 
 
 class Rollout(NamedTuple):
-    """One rollout of T steps over B envs; samples are player-major (P * B)."""
+    """One rollout of T steps over B envs; samples are player-major (P * B).
+    With a mesh, B is the rank's envs, and `bc_seats` covers all of them."""
 
     obs: torch.Tensor  # (T, P*B, H, W, 26) int8, the obs each action saw
     action: torch.Tensor  # (T, P*B) int64
@@ -118,11 +131,50 @@ class Rollout(NamedTuple):
     # player's shaped reward
     reward: Optional[torch.Tensor] = None
     mask: Optional[torch.Tensor] = None  # (T, P*B) float32, 1 for a sample PPO trains on
+    bc_seats: Optional[torch.Tensor] = None  # (P, B) bool the BC partner's seats, given one
 
 
-def gumbel_sample(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One categorical draw per row of `logits` (Gumbel-max)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+class Shard(NamedTuple):
+    """A rank's envs [lo, hi) of a mesh's `num_envs`, and how it reads a
+    draw over all of them."""
+
+    lo: int
+    hi: int
+    num_envs: int
+
+    def lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's part of the last (env) axis."""
+        return x[..., self.lo:self.hi]
+
+    def rows(self, x: torch.Tensor, env_major: bool = False) -> torch.Tensor:
+        """The rank's rows of a (P * B, ...) player-major tensor (the
+        policy's), or of a (B * P, ...) env-major one (the BC partner's)."""
+        if env_major:
+            return x.unflatten(0, (self.num_envs, -1))[self.lo:self.hi].flatten(0, 1)
+        return x.unflatten(0, (-1, self.num_envs))[:, self.lo:self.hi].flatten(0, 1)
+
+
+def mesh_shard(mesh, num_envs: int) -> Shard:
+    """The envs of `mesh`'s rank: the rank-th of its size's equal parts."""
+    if num_envs % mesh.size:
+        raise ValueError(f"num_envs {num_envs} does not divide over the mesh's {mesh.size} "
+                         "ranks: each rank steps an equal shard with its kernel")
+    k = num_envs // mesh.size
+    return Shard(mesh.rank * k, (mesh.rank + 1) * k, num_envs)
+
+
+def gumbel_sample(logits: torch.Tensor, generator: Optional[torch.Generator],
+                  shard: Optional[Shard] = None, env_major: bool = False) -> torch.Tensor:
+    """One categorical draw per row of `logits` (Gumbel-max). With a
+    `shard`, `logits` are a rank's rows (`Shard.rows`): the uniform noise is
+    drawn for every env's rows and the rank takes its own, so that it draws
+    what the one-process run draws."""
+    if shard is None:
+        u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    else:
+        n = logits.shape[0] // (shard.hi - shard.lo) * shard.num_envs
+        u = shard.rows(torch.rand((n, logits.shape[1]), generator=generator,
+                                  device=logits.device), env_major)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
@@ -145,11 +197,11 @@ def bc_seat_mask(bc_factor, num_players: int, batch: int,
     return (seats == seat[None]) & (u < bc_factor)[None]
 
 
-def _sampler(sample_fn, t: int, generator):
+def _sampler(sample_fn, t: int, generator, shard=None, env_major=False):
     """The (N, A) logits -> (N,) actions of step t: the hook's, else Gumbel-max."""
     if sample_fn is not None:
         return lambda logits: sample_fn(logits, t)
-    return lambda logits: gumbel_sample(logits, generator)
+    return lambda logits: gumbel_sample(logits, generator, shard, env_major)
 
 
 @torch.no_grad()
@@ -158,7 +210,8 @@ def collect_rollout(spec, net, config: PPOConfig,
                     sample_fn: Optional[SampleFn] = None, pool: Optional[Layout] = None,
                     pool_idx: Optional[torch.Tensor] = None,
                     shaping_factor=1.0, potential_fn=None, bc_policy=None, bc_factor=0.0,
-                    bc_draws=None, bc_sample_fn: Optional[SampleFn] = None) -> Rollout:
+                    bc_draws=None, bc_sample_fn: Optional[SampleFn] = None,
+                    mesh=None) -> Rollout:
     """Self-play one episode of `config.horizon` steps in `config.num_envs`
     envs under `net`: a `PPONet`, or any callable (N, H, W, 26) obs ->
     (logits, value) with the net's `cfg` (the recurrent learner's, which
@@ -180,6 +233,12 @@ def collect_rollout(spec, net, config: PPOConfig,
     `pool` may replace the stacked specs with a regenerated pool of the same
     leaf shapes, and `pool_idx` (B,) gives each lane's pool entry; by
     default it is drawn uniformly from `generator`.
+
+    mesh: a `parallel.mesh.Mesh`; the rollout steps the rank's envs only
+    (`mesh_shard`), and the Rollout holds them (its `pool_idx` their
+    lanes'). `pool_idx`, `bc_draws` and the generator's draws stay global
+    ((B,) for all B envs), and the rank takes its part; `sample_fn` and
+    `bc_sample_fn` get the rank's rows of the logits (`Shard.rows`).
     """
     pool_mode = isinstance(spec, (list, tuple))
     if pool_mode:
@@ -188,8 +247,12 @@ def collect_rollout(spec, net, config: PPOConfig,
     P, B, T = spec.num_players, config.num_envs, config.horizon
     if P != 2:
         raise ValueError("PPO self-play is 2-player")
+    B_all, shard = B, None
+    if mesh is not None:
+        shard = mesh_shard(mesh, B_all)
+        B = shard.hi - shard.lo
     H, W = spec.height, spec.width
-    sample = sample_fn or (lambda logits, t: gumbel_sample(logits, generator))
+    sample = sample_fn or (lambda logits, t: gumbel_sample(logits, generator, shard))
     if config.use_phi and potential_fn is None:
         raise ValueError("use_phi requires a potential_fn")
 
@@ -198,8 +261,10 @@ def collect_rollout(spec, net, config: PPOConfig,
         if src.terrain.shape[-1] != len(specs):
             raise ValueError(f"a pool of {src.terrain.shape[-1]} layouts for {len(specs)} specs")
         if pool_idx is None:
-            pool_idx = torch.randint(len(specs), (B,), generator=generator, device=device)
+            pool_idx = torch.randint(len(specs), (B_all,), generator=generator, device=device)
         pool_idx = torch.as_tensor(pool_idx, device=device).long()
+        if shard is not None:
+            pool_idx = shard.lanes(pool_idx)
         layout = gather_lanes(layout_on(src, device), pool_idx)
         lanes = pool_data(spec, layout, device)  # checks the lanes, packs them once
 
@@ -227,8 +292,11 @@ def collect_rollout(spec, net, config: PPOConfig,
         def partner(sample, state):
             return bc_policy(sample, on_layout, state)
 
+    bc_seats = None
     if bc_policy is not None:
-        bc_mask = bc_seat_mask(bc_factor, P, B, generator, bc_draws)
+        bc_seats = bc_mask = bc_seat_mask(bc_factor, P, B_all, generator, bc_draws)
+        if shard is not None:
+            bc_mask = shard.lanes(bc_seats)
     state = batch_reset(layout, B, device)
     phi_s = phi(state) if config.use_phi else None
     obs = torch.empty((T, P * B, H, W, NUM_LAYERS), dtype=torch.int8, device=device)
@@ -248,7 +316,8 @@ def collect_rollout(spec, net, config: PPOConfig,
         logp[t] = F.log_softmax(logits, -1).gather(1, action[t][:, None])[:, 0]
         act = action[t].to(torch.int32).reshape(P, B)
         if bc_policy is not None:  # the partner acts for every seat; its seats take it
-            act = torch.where(bc_mask, partner(_sampler(bc_sample_fn, t, generator), state), act)
+            act = torch.where(bc_mask, partner(
+                _sampler(bc_sample_fn, t, generator, shard, env_major=True), state), act)
         state, obs_t, sparse[t], shaped[t], events[t] = env_step(state, act)
         dense = shaped[t].float()
         if config.use_phi:  # phi(s') of the post-step state (nothing resets)
@@ -266,7 +335,7 @@ def collect_rollout(spec, net, config: PPOConfig,
     if bc_policy is not None:  # the partner's samples are not trained on
         mask[:] = (~bc_mask).reshape(P * B).float()
     return Rollout(obs, action, logp, value, sparse, shaped, events, pool_idx, logits_all,
-                   reward, mask)
+                   reward, mask, bc_seats)
 
 
 def make_ppo_eval(spec, num_games: int = 8, horizon: int = 400, device="cuda",
@@ -381,22 +450,33 @@ def gae(reward: torch.Tensor, value: torch.Tensor, gamma: float, lmbda: float):
     return adv, adv + value
 
 
-def standardize(adv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Advantages standardised over the trained samples (population std)."""
-    m_sum = torch.clamp(mask.sum(), min=1.0)
-    mean = (adv * mask).sum() / m_sum
-    std = torch.sqrt(((adv - mean).square() * mask).sum() / m_sum)
+def standardize(adv: torch.Tensor, mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Advantages standardised over the trained samples (population std);
+    with a mesh, over every rank's (two all-reduces: the sums, then the
+    squared deviations)."""
+    sums = torch.stack([mask.sum(), (adv * mask).sum()])
+    if mesh is not None:
+        mesh.all_reduce(sums)
+    m_sum = torch.clamp(sums[0], min=1.0)
+    mean = sums[1] / m_sum
+    sq = ((adv - mean).square() * mask).sum()[None]
+    if mesh is not None:
+        mesh.all_reduce(sq)
+    std = torch.sqrt(sq[0] / m_sum)
     return (adv - mean) / (std + 1e-8)
 
 
-def ppo_loss(logits, value, batch, kl_coeff, entropy_coeff, config: PPOConfig):
+def ppo_loss(logits, value, batch, kl_coeff, entropy_coeff, config: PPOConfig,
+             mask_count=None):
     """The PPO loss of one minibatch from the net's (n, A) logits and (n,)
     values on it: clipped surrogate, KL(old || new) from the stored logits,
     entropy bonus, clipped value loss, all masked means. `batch` is
-    (action, logp_old, logits_old, value_old, adv, vt, mask).
+    (action, logp_old, logits_old, value_old, adv, vt, mask). `mask_count`
+    replaces the means' divisor, the batch's mask sum (a rank's part of a
+    minibatch divides by the whole minibatch's).
     Returns (total, (policy_loss, vf_loss, kl, entropy))."""
     action, logp_old, logits_old, value_old, adv, vt, mask = batch
-    m_sum = torch.clamp(mask.sum(), min=1.0)
+    m_sum = torch.clamp(mask.sum() if mask_count is None else mask_count, min=1.0)
 
     def wmean(x):
         return (x * mask).sum() / m_sum
@@ -421,11 +501,12 @@ def ppo_loss(logits, value, batch, kl_coeff, entropy_coeff, config: PPOConfig):
     return total, (policy_loss, vf_loss, kl, entropy)
 
 
-def loss_fn(net: PPONet, batch, kl_coeff, entropy_coeff, config: PPOConfig):
+def loss_fn(net: PPONet, batch, kl_coeff, entropy_coeff, config: PPOConfig,
+            mask_count=None):
     """`ppo_loss` of the feed-forward net on a minibatch (obs, action,
     logp_old, logits_old, value_old, adv, vt, mask)."""
     logits, value = net(batch[0])
-    return ppo_loss(logits, value, batch[1:], kl_coeff, entropy_coeff, config)
+    return ppo_loss(logits, value, batch[1:], kl_coeff, entropy_coeff, config, mask_count)
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -449,20 +530,30 @@ def sgd_step(ts, total: torch.Tensor, params, config: PPOConfig) -> None:
 
 
 def finish_iteration(ts, ro: Rollout, aux, config: PPOConfig, shaping_factor, entropy_coeff,
-                     bc_factor):
+                     bc_factor, mesh=None):
     """The adaptive KL coefficient (rllib update_kl, from the last
     minibatch's KL) and the iteration's metrics: (ts with the new counters,
-    IterMetrics)."""
+    IterMetrics). With a mesh, `aux` is the rank's part of the loss terms,
+    and they and the rollout's sums are all-reduced in one buffer."""
     policy_loss, vf_loss, kl, entropy = (a.detach() for a in aux)
+    sparse, shaped, total = ro.sparse.sum(), ro.shaped.sum(), ro.reward.sum()
+    if mesh is None:
+        bc_fraction = (1.0 - ro.mask).mean()
+    else:
+        sums = mesh.all_reduce(torch.stack([
+            sparse.float(), shaped.float(), total, (1.0 - ro.mask).sum(), policy_loss, vf_loss,
+            kl, entropy]))
+        sparse, shaped, total, bc_fraction, policy_loss, vf_loss, kl, entropy = sums.unbind()
+        bc_fraction = bc_fraction / (ro.mask.numel() * mesh.size)
     kl_coeff = torch.where(
         kl > 2.0 * config.kl_target, ts.kl_coeff * 1.5,
         torch.where(kl < 0.5 * config.kl_target, ts.kl_coeff * 0.5, ts.kl_coeff),
     )
     B = config.num_envs
     metrics = IterMetrics(
-        episode_sparse_reward=ro.sparse.sum() / B,
-        episode_shaped_reward=ro.shaped.sum() / B,
-        episode_total_reward=ro.reward.sum() / B,
+        episode_sparse_reward=sparse / B,
+        episode_shaped_reward=shaped / B,
+        episode_total_reward=total / B,
         policy_loss=policy_loss,
         vf_loss=vf_loss,
         kl=kl,
@@ -471,12 +562,58 @@ def finish_iteration(ts, ro: Rollout, aux, config: PPOConfig, shaping_factor, en
         reward_shaping_factor=shaping_factor,
         entropy_coeff=entropy_coeff,
         bc_factor=bc_factor,
-        bc_sample_fraction=(1.0 - ro.mask).mean(),
+        bc_sample_fraction=bc_fraction,
     )
     return ts._replace(env_steps=ts.env_steps + B * config.horizon, kl_coeff=kl_coeff), metrics
 
 
 PhaseFn = Callable[[str, object], None]  # (phase, its output) after each phase
+
+
+def _members(idx: torch.Tensor, shard: Shard, num_players: int):
+    """For each minibatch (a row of `idx`, global sample indices of the
+    time-major (T, P * B) rollout, whose sample s is env s % B's), the
+    rank's members in the permutation's order, as indices of its own
+    (T, P * B/n) samples. One host sync: their counts."""
+    B, lo, hi = shard.num_envs, shard.lo, shard.hi
+    mine = (idx % B >= lo) & (idx % B < hi)
+    counts = mine.sum(1).tolist()
+    first = torch.gather(idx, 1, torch.argsort((~mine).to(torch.int32), dim=1, stable=True))
+    pb, n = num_players * B, hi - lo
+    local = first // pb * (num_players * n) + first % pb // B * n + first % B - lo
+    return [local[i, :c] for i, c in enumerate(counts)]
+
+
+def _sharded_epoch(ts, params, data, idx, ro: Rollout, shard: Shard, entropy_coeff,
+                   config: PPOConfig, mesh):
+    """A rank's SGD epoch over the minibatches `idx` (n_minibatches,
+    mb_size) of the global permutation: on each, the loss of its members
+    over the minibatch's global mask count (which every rank computes from
+    the global BC seats), the gradients all-reduced as one flat buffer, then
+    the clip by their global norm and Adam, as one process takes them.
+    Returns the rank's part of the last minibatch's loss terms."""
+    P = ro.sparse.shape[1]
+    pb = P * shard.num_envs
+    seats = (torch.ones(pb, device=idx.device) if ro.bc_seats is None
+             else (~ro.bc_seats).reshape(pb).float())
+    counts = seats[idx % pb].sum(1)
+    sizes = [p.numel() for p in params]
+    for rows, count in zip(_members(idx, shard, P), counts):
+        if rows.numel():
+            total, aux = loss_fn(ts.net, tuple(d[rows] for d in data), ts.kl_coeff,
+                                 entropy_coeff, config, count)
+            ts.opt.zero_grad(set_to_none=True)
+            total.backward()
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+        else:  # no member: no forward, but a part (zeros) in the all-reduce
+            aux = torch.zeros(4, device=idx.device).unbind()
+            flat = torch.zeros(sum(sizes), device=idx.device)
+        mesh.all_reduce(flat)
+        for p, g in zip(params, flat.split(sizes)):
+            p.grad = g.view_as(p)
+        clip_by_global_norm_([p.grad for p in params], config.grad_clip)
+        ts.opt.step()
+    return aux
 
 
 def make_ppo(spec, config: PPOConfig, potential_fn=None, bc_policy=None, mesh=None,
@@ -506,17 +643,30 @@ def make_ppo(spec, config: PPOConfig, potential_fn=None, bc_policy=None, mesh=No
     After the rollout (whose set-up copies do), nothing in an iteration
     waits for the card: GAE, the SGD loop and the KL update stay on the
     device.
+
+    mesh: a `parallel.mesh.Mesh`, data parallelism over its ranks (see the
+    module's docstring); its device replaces `device`, and each rank calls
+    `train_iteration` on its own TrainState (`parallel.mesh.replicated`
+    makes them equal). Its size must divide `config.num_envs`. The hooks
+    keep their global meaning: `pool_idx`, `bc_draws` and `perm_fn`'s
+    permutation cover all B envs and 2 * B * T samples, and `sample_fn` /
+    `bc_sample_fn` get the rank's rows of the logits (`Shard.rows`). The
+    rollout and the "rollout" phase hold the rank's envs; after the rollout
+    each epoch waits for the card once (its members' counts).
     """
     if config.use_phi and potential_fn is None:
         raise ValueError("use_phi requires a potential_fn")
-    if mesh is not None:
-        raise ValueError("a mesh: data parallelism comes with ROADMAP A.9")
     pool_mode = isinstance(spec, (list, tuple))
     spec0 = check_pool_shape(list(spec)) if pool_mode else spec
     if spec0.num_players != 2:
         raise ValueError("PPO self-play is 2-player")
-    device = torch.device(device)
     B, T = config.num_envs, config.horizon
+    if mesh is None:
+        device, shard = torch.device(device), None
+    else:
+        if torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} for a mesh on {mesh.device}")
+        device, shard = mesh.device, mesh_shard(mesh, B)
     n_samples = 2 * B * T
     mb_size = min(2 * config.sgd_minibatch_size, n_samples)
     n_minibatches = n_samples // mb_size  # the tail of each permutation is dropped
@@ -545,16 +695,16 @@ def make_ppo(spec, config: PPOConfig, potential_fn=None, bc_policy=None, mesh=No
         shaping_factor, entropy_coeff, bc_factor = schedules(config, ts.env_steps)
         ro = collect_rollout(spec, ts.net, config, ts.generator, device, sample_fn, pool,
                              pool_idx, shaping_factor, potential_fn, bc_policy, bc_factor,
-                             bc_draws, bc_sample_fn)
+                             bc_draws, bc_sample_fn, mesh)
         if on_phase:
             on_phase("rollout", ro)
         adv, value_targets = gae(ro.reward, ro.value, config.gamma, config.lmbda)
-        adv = standardize(adv, ro.mask)
+        adv = standardize(adv, ro.mask, mesh)
         if on_phase:
             on_phase("advantages", (adv, value_targets))
 
-        def flat(x):  # time-major (T, P*B, ...) -> (n_samples, ...)
-            return x.reshape((n_samples,) + x.shape[2:])
+        def flat(x):  # time-major (T, P*B, ...) -> (n_samples, ...), the rank's with a mesh
+            return x.reshape((-1,) + x.shape[2:])
 
         data = tuple(flat(x) for x in (ro.obs, ro.action, ro.logp, ro.logits, ro.value, adv,
                                        value_targets, ro.mask))
@@ -564,12 +714,18 @@ def make_ppo(spec, config: PPOConfig, potential_fn=None, bc_policy=None, mesh=No
                 perm = torch.randperm(n_samples, generator=ts.generator, device=device)
             else:
                 perm = torch.as_tensor(perm_fn(epoch), device=device)
+            if shard is not None:
+                aux = _sharded_epoch(ts, params, data,
+                                     perm[:n_minibatches * mb_size].view(n_minibatches, mb_size),
+                                     ro, shard, entropy_coeff, config, mesh)
+                continue
             for i in range(n_minibatches):
                 idx = perm[i * mb_size:(i + 1) * mb_size]
                 total, aux = loss_fn(ts.net, tuple(d[idx] for d in data), ts.kl_coeff,
                                      entropy_coeff, config)
                 sgd_step(ts, total, params, config)
-        return finish_iteration(ts, ro, aux, config, shaping_factor, entropy_coeff, bc_factor)
+        return finish_iteration(ts, ro, aux, config, shaping_factor, entropy_coeff, bc_factor,
+                                mesh)
 
     return init_fn, train_iteration
 

@@ -224,17 +224,22 @@ def test_clip_and_adam_match_optax(scale):
     assert all(n < max_norm for n in norms) if scale < 0.1 else all(n > max_norm for n in norms)
 
 
-@pytest.mark.parametrize("change,item", [("use_phi", "potential_fn"),
-                                         ("regenerated", "regenerated pool"),
-                                         ("mesh", "A.9")])
+@pytest.mark.parametrize("change,item", [
+    ("use_phi", "potential_fn"), ("regenerated", "regenerated pool"),
+    pytest.param("mesh", "num_envs 16 does not divide over the mesh's 3 ranks", id="mesh-A.9")])
 def test_make_ppo_refuses_what_comes_later(change, item):
     """use_phi without a potential_fn (JAX ppo.py asserts it), a regenerated
     pool with phi or a BC partner (whose tables belong to the fixed pool),
-    and a mesh (data parallelism, ROADMAP A.9)."""
+    and a mesh whose size does not divide the envs (data parallelism,
+    ROADMAP A.9: each rank steps an equal shard with its kernel, where JAX
+    falls back to its XLA step)."""
     spec = from_layout_name("cramped_room")
     if change == "mesh":
+        from overcooked_ai_tpu_torch.parallel.mesh import Mesh
+
         with pytest.raises(ValueError, match=item):
-            ppo.make_ppo(spec, ppo.PPOConfig(), device="cpu", mesh=object())
+            ppo.make_ppo(spec, ppo.PPOConfig(num_envs=16), device="cpu",
+                         mesh=Mesh(None, 0, 3, torch.device("cpu")))
     elif change == "use_phi":
         with pytest.raises(ValueError, match=item):
             ppo.make_ppo(spec, ppo.PPOConfig(use_phi=True), device="cpu")
