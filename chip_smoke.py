@@ -113,7 +113,10 @@ Phases, one line each with its seconds:
      auto-reset held bit for bit against the CPU's replay of its actions,
      and B1's refusals of 1 player and of a horizon past its stamp bound.
 The kernel-against-plain holds of phases 3, 4, 6, 7, 8 and 11, and the CPU
-replays of phases 13, 16c and 17c, are parity jobs: worker processes (one
+replays of phases 13, 16c and 17c, and [cert] (every certificate of the
+49-layout dynamics replay, `cli/certify_layouts`, on the card: B1 a step
+on the 2-player layouts, B2 on every layout, both dynamics; its line
+follows phase 4's), are parity jobs: worker processes (one
 torch thread each, the plain versions on the CPU except at 16384 envs)
 started together after the build and collected before the first timed
 phase; 16a runs meanwhile. Phase 17's rank processes start once the
@@ -760,6 +763,23 @@ def job_env_rollout():
             "resets": int(cpu.done.sum()), "events": int(cpu.events.sum())}
 
 
+def job_cert(old_dynamics):
+    """[cert]: every certificate of the 49-layout dynamics replay
+    (`cli/certify_layouts`) on the card: 400 biased-random steps of one env
+    on each supported layout, B1 a step on the 2-player ones (every field),
+    B2 in one launch on every one (the final state's sha256 and the sparse
+    total); the unsupported ones refused."""
+    from overcooked_ai_tpu_torch.cli import certify_layouts
+    from overcooked_ai_tpu_torch.ops import fused_rollout, fused_train
+
+    fused_train.launches = fused_rollout.launches = 0
+    try:
+        counts = certify_layouts.check_all(old_dynamics, _card(), log=lambda _: None)
+    except SystemExit as e:
+        return {"err": 1, "msg": str(e)}
+    return {"err": 0, **counts, "b1": fused_train.launches, "b2": fused_rollout.launches}
+
+
 # phase 17's data-parallel cases (`parallel/dryrun.py`): a one-rank NCCL
 # mesh at 12c's shape; two gloo ranks on the one card at phase 12's width,
 # one epoch, on cramped_room and on 12b's pool and regenerated pool
@@ -791,6 +811,7 @@ def start_ranks(tmp):
 def parity_jobs():
     """(label, function, args) of every parity job, the longest first."""
     return ([("17c env.rollout cramped_room", job_env_rollout, ()),
+             ("cert new dynamics", job_cert, (False,)), ("cert old dynamics", job_cert, (True,)),
              ("6 B2 16384x450", job_b2_main, ()), ("7 B4 16384x450", job_b4_main, ()),
              ("13 greedy cramped_room", job_pair_replay,
               ("greedy", "cramped_room", 1024, 13, 200)),
@@ -843,6 +864,7 @@ def main() -> int:
         return 1
     import numpy as np
 
+    import bench_torch
     from overcooked_ai_tpu_torch.agents import agents as agents_mod
     from overcooked_ai_tpu_torch.agents.evaluation import (
         check_trajectories,
@@ -990,6 +1012,18 @@ def main() -> int:
         f"(tile {fused_train.tile_plan(128, 256).envs} envs), max_abs_err={b1_err}")
     if b1_err:
         raise SystemExit("B1 kernel disagrees with its plain version")
+    cert = {k[5:8]: v for k, v in jobs_of("cert ").items()}
+    log(f"[cert] {max(v['secs'] for v in cert.values()):.2f}s (longest job) the 49-layout "
+        f"dynamics certificates, one env x 400 steps each, on the card: "
+        + "; ".join(f"{dyn} dynamics " + (v["msg"] if v["err"] else
+                    f"{v['layouts']} layouts matched (B1 {v.get('B1', 0)} layouts, "
+                    f"{v['b1']} launches; B2 {v['B2']} layouts, {v['b2']} launches), "
+                    f"{v['refused']} refused") for dyn, v in cert.items()))
+    want_cert = {"new": (49, 45, 49, 0), "old": (34, 30, 34, 15)}
+    if any(v["err"] or (v["layouts"], v.get("B1", 0), v["B2"], v["refused"]) != want_cert[dyn]
+           or v["b1"] != 400 * v.get("B1", 0) or v["b2"] != v["B2"] for dyn, v in cert.items()):
+        raise SystemExit("the card disagrees with a layout certificate")
+    cert_launches = [sum(v["b1"] for v in cert.values()), sum(v["b2"] for v in cert.values())]
 
     # ---- 5. the policy path at full width
     spec = from_layout_name("cramped_room")
@@ -1374,13 +1408,12 @@ def main() -> int:
     # passed in (B3); a small iteration on the card against the CPU learner;
     # the two training CLIs in process, writing to a temporary directory
     t0 = time.perf_counter()
-    cfg_it = PPOConfig(num_envs=2048, sgd_minibatch_size=32768)
+    cfg_it = bench_torch.train_iter_config()
     init_fn, train_it = make_ppo(spec, cfg_it, device=dev)
     ts = init_fn(0)
     # warm-up at the timed iteration's minibatch shape (a first iteration takes
     # about 0.5 s longer, PERF.md): 32 steps, one epoch of 2 minibatches
-    make_ppo(spec, PPOConfig(num_envs=2048, horizon=32, num_sgd_iter=1,
-                             sgd_minibatch_size=32768), device=dev)[1](ts)
+    make_ppo(spec, dataclasses.replace(cfg_it, horizon=32, num_sgd_iter=1), device=dev)[1](ts)
     kl_before, steps_before = ts.kl_coeff.item(), ts.env_steps.item()
     # the timed iteration, with CUDA events at its phase boundaries for the
     # split. From the rollout's end on (GAE, the SGD loop, the KL update), a
@@ -1691,8 +1724,7 @@ def main() -> int:
     t14 = time.perf_counter()
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
-    proxy = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "r4_bc",
-                         "bc_proxy_cramped_room")
+    proxy = bench_torch.BC_PROXY
     bc_params, bc_cfg = load_bc_model(proxy)  # the JAX package's msgpack, read by the port
     feat_err, phi_err, logit_err, logit_max, n_states = 0.0, 0.0, 0.0, 0.0, 0
     # torch.argmin keeps the first of equal minima on the card too
@@ -1746,9 +1778,8 @@ def main() -> int:
     fc_cr = build_motion_tables(spec.layout.terrain).feature_cost
     partner = bc_policy_batch(spec, fc_cr, bc_params, bc_cfg)
     phi_cr = make_potential_fn(spec, fc_cr)
-    half = ((0, 0.5), (float("inf"), 0.5))
-    cfg_bc = PPOConfig(num_envs=2048, sgd_minibatch_size=32768, bc_schedule=half,
-                       use_phi=True, phi_event_mix=True, lr=5e-4)
+    half = bench_torch.BC_SCHEDULE_HALF
+    cfg_bc = bench_torch.ppo_bc_phi_config()
     collect_rollout(spec, net, PPOConfig(num_envs=2048, horizon=4, use_phi=True), gen, dev,
                     potential_fn=phi_cr, bc_policy=partner, bc_factor=0.5)  # warm-up
     init_bc, train_bc = make_ppo(spec, cfg_bc, phi_cr, partner, device=dev)
@@ -1801,8 +1832,7 @@ def main() -> int:
     t0 = time.perf_counter()
     fcs64 = [build_motion_tables(s.layout.terrain).feature_cost for s in specs64]
     init_pbc, train_pbc = make_ppo(
-        specs64, PPOConfig(num_envs=2048, horizon=200, sgd_minibatch_size=32768, num_sgd_iter=1,
-                           bc_schedule=half, use_phi=True, phi_event_mix=True, lr=5e-4),
+        specs64, dataclasses.replace(cfg_bc, horizon=200, num_sgd_iter=1),
         make_potential_fn_pool(specs64), bc_policy_batch_pool(specs64, fcs64, bc_params, bc_cfg),
         device=dev)
     reset_counts()
@@ -2359,7 +2389,7 @@ def main() -> int:
          "ppo_bc_phi_launches": b1_bc_launches, "bc_eval_launches": b1_eval_bc,
          "lstm_launches": b1_lstm_launches, "lstm_eval_launches": b1_eval_lstm,
          "dp_rank_launches": two[0]["fixed"]["launches"][0],
-         "env_rollout_launches": roll_counts[0],
+         "env_rollout_launches": roll_counts[0], "cert_launches": cert_launches[0],
          "eval_artifact_launches": 400, "single_env_launches": demo_counts[0],
          "single_env_ms": b1_one_ms, "single_env_plain_ms": b1_one_plain_ms,
          "single_env_bound_ms": b1_one_bound_ms,
@@ -2372,7 +2402,8 @@ def main() -> int:
          "replaces": "overcooked_ai_tpu/ops/fused_rollout.py:693", "launches": b2_launches,
          "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": t_plain * 1e3,
          "bound_ms": b2_bound_ms, "bound_by": "operations", "library_ms": None,
-         "steps": T_CMP, "main_steps": T, "main_ms": b2_main_ms,
+         "cert_launches": cert_launches[1], "steps": T_CMP, "main_steps": T,
+         "main_ms": b2_main_ms,
          "main_bound_ms": b2_main_bound_ms, "old_count_bound_ms": b2_old_bounds[T_CMP],
          "old_count_main_bound_ms": b2_old_bounds[T], "threads": fused_rollout.ROLLOUT_THREADS,
          "threads_sweep_ms": {k: v for k, v in rollout_sweep.items() if k.startswith("B2")},

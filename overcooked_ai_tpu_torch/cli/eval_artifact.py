@@ -21,6 +21,14 @@ stds are 0 is reported and not gated.
 
 The games run on the card (`--device cuda`, the default); `--device cpu`
 runs the plain versions.
+
+`--render` plays nothing: it writes the results JSON at `--out` as the JAX
+package's markdown table and heatmap (`scripts/make_eval_artifact.py`'s
+`_write_markdown` and `_plot`), to `EVAL_MATRIX_TORCH[_OLD_DYNAMICS].md` and
+`eval_matrix_torch[_old_dynamics].png` at the repo root by default, never
+over the JAX package's `EVAL_MATRIX*.md` or `eval_matrix*.png`:
+
+    python -m overcooked_ai_tpu_torch.cli.eval_artifact --render [--old-dynamics]
 """
 
 from __future__ import annotations
@@ -51,6 +59,10 @@ def parse_args(argv=None):
                     help="default runs_torch/eval_matrix_results[_old_dynamics].json")
     ap.add_argument("--compare", default=None, help="a JAX results JSON to hold the cells against")
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu")
+    ap.add_argument("--render", action="store_true",
+                    help="play nothing: write --out's results as the markdown table and heatmap")
+    ap.add_argument("--md", default=None, help="default EVAL_MATRIX_TORCH[_OLD_DYNAMICS].md")
+    ap.add_argument("--png", default=None, help="default eval_matrix_torch[_old_dynamics].png")
     return ap.parse_args(argv)
 
 
@@ -76,8 +88,103 @@ def compare(results: dict, reference: dict) -> list:
     return rows
 
 
+def write_markdown(summary: dict, path: str, png_name: str) -> None:
+    """The JAX package's EVAL_MATRIX.md layout: one table a layout, row =
+    seat 0, column = seat 1, each cell `mean ± std` at one decimal."""
+    old = summary["dynamics"] == "old"
+    lines = [
+        f"# Canonical evaluation matrix, torch port{' (old dynamics)' if old else ''}",
+        "",
+        f"Mean per-game sparse reward over {summary['games_per_pair']} games (horizon 400, seed "
+        "0), both seat orders -- the reference's 5-layout eval protocol "
+        "(`human_aware_rl/ppo/evaluate.py:100-189`), played by the torch port "
+        f"(`overcooked_ai_tpu_torch.cli.eval_artifact`, device `{summary['device']}`). Agents: "
+        "the JAX package's `PPO_SP` and `PPO_BC` runs converted by `convert_jax_checkpoints.py` "
+        "(`artifacts_torch/`), its `BC` proxies (`runs/eval_artifact*/bc_proxy_*`) and the "
+        "scripted `greedy` model; `EVAL_MATRIX.md` describes them. Dynamics: "
+        + ("old (auto-cook) dynamics." if old else
+           "current dynamics (explicit INTERACT starts cooking)."),
+        "",
+        "Row = seat 0, column = seat 1 (cell: mean ± std).",
+        "",
+    ]
+    comp = summary.get("comparison")
+    if comp:
+        lines += [f"Against `{comp['reference']}`: {comp['within_3se']} of {comp['cells']} "
+                  "cells within three combined standard errors of the JAX table's mean; outside: "
+                  f"{', '.join(comp['outside_3se']) or 'none'}.", ""]
+    for layout, lay_res in summary["results"].items():
+        lines += [f"### {layout}", "", "| seat0 \\ seat1 | " + " | ".join(KINDS) + " |",
+                  "|---|" + "---|" * len(KINDS)]
+        for a in KINDS:
+            row = [f"{round(lay_res[f'{a}+{b}']['mean'], 1)} ± "
+                   f"{round(lay_res[f'{a}+{b}']['std'], 1)}" for b in KINDS]
+            lines.append(f"| **{a}** | " + " | ".join(row) + " |")
+        lines.append("")
+    lines += [f"![pairwise matrix heatmaps]({png_name})", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def plot(results: dict, path: str) -> None:
+    """The JAX package's small-multiples heatmap: magnitude as one
+    sequential hue, value labels in the cells."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import numpy as np
+
+    n = len(results)
+    fig, axes = plt.subplots(1, n, figsize=(3.4 * n, 3.8))
+    axes = [axes] if n == 1 else axes
+    vmax = max(v["mean"] for lay in results.values() for v in lay.values()) or 1.0
+    for ax, (layout, lay_res) in zip(axes, results.items()):
+        m = np.array([[lay_res[f"{a}+{b}"]["mean"] for b in KINDS] for a in KINDS])
+        ax.imshow(m, cmap="Blues", vmin=0, vmax=vmax)
+        for i in range(len(KINDS)):
+            for j in range(len(KINDS)):
+                ax.text(j, i, f"{m[i, j]:.0f}", ha="center", va="center", fontsize=10,
+                        color="#f0f0f4" if m[i, j] / vmax > 0.6 else "#26262c")
+        ax.set_xticks(range(len(KINDS)), KINDS, fontsize=7)
+        ax.set_yticks(range(len(KINDS)), KINDS, fontsize=7)
+        ax.set_title(layout, fontsize=10)
+        ax.set_xlabel("seat 1", fontsize=8, color="#555")
+        if ax is axes[0]:
+            ax.set_ylabel("seat 0", fontsize=8, color="#555")
+        for sp in ax.spines.values():
+            sp.set_visible(False)
+    fig.suptitle("Mean sparse reward per game -- pairwise agent matrix (torch port)",
+                 fontsize=12)
+    fig.tight_layout()
+    fig.savefig(path, dpi=130)
+    plt.close(fig)
+
+
+def render(args) -> tuple:
+    """--render: the results JSON at --out as markdown and heatmap; returns
+    the two paths written."""
+    suffix = "_OLD_DYNAMICS" if args.old_dynamics else ""
+    md = args.md or os.path.join(ROOT, f"EVAL_MATRIX_TORCH{suffix}.md")
+    png = args.png or os.path.join(ROOT, f"eval_matrix_torch{suffix.lower()}.png")
+    for p in (md, png):
+        base = os.path.basename(p)
+        if base.startswith(("EVAL_MATRIX", "eval_matrix")) and "torch" not in base.lower():
+            raise SystemExit(f"{p}: the JAX package's artifact is not overwritten")
+    with open(args.out) as f:
+        summary = json.load(f)
+    write_markdown(summary, md, os.path.basename(png))
+    plot(summary["results"], png)
+    print(f"wrote {md} and {png}")
+    return md, png
+
+
 def main(argv=None):
     args = parse_args(argv)
+    args.out = args.out or os.path.join(
+        "runs_torch", f"eval_matrix_results{'_old_dynamics' if args.old_dynamics else ''}.json")
+    if args.render:
+        return render(args)
     from overcooked_ai_tpu_torch.agents.evaluation import run_agent_pair
     from overcooked_ai_tpu_torch.agents.loading import build_agent
     from overcooked_ai_tpu_torch.cli.train_ppo import check_device
@@ -89,8 +196,7 @@ def main(argv=None):
     suffix = "_old" if args.old_dynamics else ""
     art_dir = args.art_dir or os.path.join(ROOT, "artifacts_torch", f"eval_artifact{suffix}")
     bc_dir = os.path.join(ROOT, "runs", f"eval_artifact{suffix}")
-    out = args.out or os.path.join(
-        "runs_torch", f"eval_matrix_results{'_old_dynamics' if args.old_dynamics else ''}.json")
+    out = args.out
     overrides = {"old_dynamics": True} if args.old_dynamics else {}
     cells = args.cells or [f"{a}+{b}" for a in KINDS for b in KINDS]
     results = {}

@@ -124,22 +124,23 @@ def launch_kernel(layout: Layout, state: State, seed: int, actions, num_steps: i
     return out, ret
 
 
-def _fused_rollout(layout, state, seed, actions, num_steps, horizon):
+def _fused_rollout(layout, state, seed, actions, num_steps, horizon, threads=ROLLOUT_THREADS):
     dev = state.t.device
     if dev.type == "cpu":
         return plain_rollout(layout, state, seed, actions, num_steps, horizon)
     if dev.type == "cuda":
-        return launch_kernel(layout, state, seed, actions, num_steps, horizon)
+        return launch_kernel(layout, state, seed, actions, num_steps, horizon, threads)
     raise ValueError(f"no rollout kernel for device {dev}")
 
 
 def fused_rollout_random(layout: Layout, state: State, seed: int, num_steps: int,
-                         horizon: int = 400):
-    """`num_steps` env steps under the murmur3 uniform-random policy.
+                         horizon: int = 400, threads: int = ROLLOUT_THREADS):
+    """`num_steps` env steps under the murmur3 uniform-random policy, the
+    kernel in blocks of `threads` (the plain version on the CPU ignores it).
 
     Returns (final_state, per-env return (B,) int32).
     """
-    return _fused_rollout(layout, state, seed, None, num_steps, horizon)
+    return _fused_rollout(layout, state, seed, None, num_steps, horizon, threads)
 
 
 def fused_rollout_actions(layout: Layout, state: State, actions: torch.Tensor,
