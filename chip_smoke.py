@@ -70,7 +70,12 @@ Phases, one line each with its seconds:
      proxy, use_phi, phi_event_mix), its wall, its split by CUDA events, a
      traced 16-step rollout's device idle share and the eval with the BC
      seat at 8 x 200; one pool iteration (200 steps, one epoch) with the pool partner
-     and the pool phi; a small PPO_BC + phi iteration on the card against the CPU; the
+     and the pool phi; (e) the phi kernel (`ops/fused_phi`) bit for bit
+     against the plain version on the card over every state of a PPO_BC +
+     phi rollout at 2048 x 400 on `cramped_room`, of a 64-layout pool rollout
+     and of random play on generated layouts of 3-7 pots, one launch a step
+     and one at the reset, its time a launch, the wrapper's host time a call
+     and the plain version's; a small PPO_BC + phi iteration on the card against the CPU; the
      `train_bc_proxy`, `train_ppo --bc-model --use-phi` and `eval_matrix`
      (a `bc:` agent) CLIs in process;
  15. the recurrent learner: `LSTMPPONet` (NetConfig() widths, cell 256) on
@@ -854,6 +859,215 @@ def submit_parity_jobs(ex):
     return {label: ex.submit(_timed_job, fn, args) for label, fn, args in parity_jobs()}
 
 
+def _phi_held(worst, kernel_fn, plain_fn):
+    """kernel_fn's phi, its largest |difference| and ulp from plain_fn's on
+    the same arguments kept on the card in `worst` (no host sync)."""
+    import torch
+
+    def fn(*args):
+        got, want = kernel_fn(*args), plain_fn(*args)
+        worst["err"] = torch.maximum(worst["err"], (got - want).abs().max())
+        ulp = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max()
+        worst["ulp"] = torch.maximum(worst["ulp"], ulp)
+        return got
+
+    return fn
+
+
+def phi_kernel_check(dev, spec, partner, specs64, steps=400, B=2048):
+    """Phase 14e: the phi kernel against the plain version on the card over
+    every state of a PPO_BC + phi rollout at 2048 envs x `steps` on
+    `spec` and of one on the 64-layout pool, and over 2048-env random play
+    on generated layouts of 3-7 pots (the sum over the pots in ATen's
+    order); its launches a rollout, its registers, its device time a launch
+    (CUDA events around launches queued behind a sleep), the wrapper's host
+    time a call and the plain version's time a call. Returns the phase's
+    numbers; raises SystemExit on a difference or a launch count off."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.core import potential as pot
+    from overcooked_ai_tpu_torch.core.constants import (
+        OBJ_DISH,
+        OBJ_ONION,
+        OBJ_SOUP,
+        OBJ_TOMATO,
+        TERRAIN_POT,
+    )
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.core.featurize import cost_rows
+    from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
+    from overcooked_ai_tpu_torch.core.layout_generator import LayoutGenerator
+    from overcooked_ai_tpu_torch.core.state import to_torch
+    from overcooked_ai_tpu_torch.ops import _build, fused_phi, fused_train
+    from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
+    from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
+    from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout
+    from tests.torch_states import crafted_states
+
+    t0 = time.perf_counter()
+    zero = torch.zeros((), device=dev)
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    # one PPO_BC + phi rollout on `spec`: every phi(s') and the reset's phi(s)
+    fc = build_motion_tables(spec.layout.terrain).feature_cost
+    ptab, rows = pot.tables_on(pot.build_potential_tables(spec), dev), cost_rows(fc).to(dev)
+    phi_fn = pot.make_potential_fn(spec, fc)
+    worst = {"err": zero, "ulp": zero.long()}
+    checked = _phi_held(worst, phi_fn, lambda lay, st: pot.potential(lay, ptab, rows, st))
+    torch.manual_seed(18)
+    net = PPONet(NetConfig(), spec.height, spec.width).to(dev)
+    fused_phi.launches = 0
+    collect_rollout(spec, net, PPOConfig(num_envs=B, horizon=steps, use_phi=True,
+                                         phi_event_mix=True), gen, dev, potential_fn=checked,
+                    bc_policy=partner, bc_factor=0.5)
+    out["rollout"] = {"launches": fused_phi.launches, "err": worst["err"].item(),
+                      "ulp": worst["ulp"].item()}
+
+    # one rollout on the 64-layout pool, each lane on its entry's tables
+    fcs = [build_motion_tables(s.layout.terrain).feature_cost for s in specs64]
+    ptab64 = pot.tables_on(pot.stack_potential_tables(
+        [pot.build_potential_tables(s) for s in specs64]), dev)
+    rows64 = cost_rows(np.stack(fcs)).to(dev)
+    worst = {"err": zero, "ulp": zero.long()}
+    checked = _phi_held(worst, pot.make_potential_fn_pool(specs64),
+                        lambda idx, lanes, st: pot.potential(lanes, ptab64, rows64, st, idx))
+    net64 = PPONet(NetConfig(), specs64[0].height, specs64[0].width).to(dev)
+    fused_phi.launches = 0
+    collect_rollout(specs64, net64, PPOConfig(num_envs=B, horizon=steps, use_phi=True), gen,
+                    dev, potential_fn=checked)
+    out["pool_rollout"] = {"launches": fused_phi.launches, "err": worst["err"].item(),
+                           "ulp": worst["ulp"].item()}
+
+    # random play on generated layouts of 3-7 pots, phi every 5th step
+    many, seed = {}, 0
+    while len(many) < 5 and seed < 200:
+        s = LayoutGenerator(outer_shape=(9, 7), prop_feats=0.6,
+                            rng=np.random.RandomState(seed)).generate_spec(name=f"pots_{seed}")
+        k = int((np.asarray(s.layout.terrain) == TERRAIN_POT).sum())
+        if 3 <= k <= 7 and k not in many:
+            many[k] = s
+        seed += 1
+    def checked_on(s, worst):
+        """phi of `s` through make_potential_fn, held against the plain version."""
+        fc_s = build_motion_tables(s.layout.terrain).feature_cost
+        ptab_s = pot.tables_on(pot.build_potential_tables(s), dev)
+        rows_s = cost_rows(fc_s).to(dev)
+        return _phi_held(worst, pot.make_potential_fn(s, fc_s),
+                         lambda lay, st: pot.potential(lay, ptab_s, rows_s, st))
+
+    worst = {"err": zero, "ulp": zero.long()}
+    rng = np.random.RandomState(18)
+    for k, s in sorted(many.items()):
+        checked = checked_on(s, worst)
+        lay = layout_on(s.layout, dev)
+        state = batch_reset(s.layout, B, dev)
+        for t in range(200):
+            a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
+            state = fused_train.fused_train_step_tiles(s.layout, state, a, horizon=400,
+                                                       reset_horizon=401)[0]
+            if t % 5 == 4:
+                checked(lay, state)
+    out["many_pots"] = {"pots": sorted(many), "err": worst["err"].item(),
+                        "ulp": worst["ulp"].item()}
+
+    # crafted states (the CPU tests' `crafted_states`) on `spec`, a 2-pot
+    # layout and the generated ones: pots empty, idle, cooking and ready,
+    # several idle soups an env (partial_order's set order), held soups and
+    # dishes (the dish reweighting); `cases` counts what the batches reach
+    worst = {"err": zero, "ulp": zero.long()}
+    cases = dict.fromkeys(("empty", "idle", "cooking", "ready", "two_idle_envs", "held_soup",
+                           "held_dish"), 0)
+    two_pot = from_layout_name("counter_circuit_o_1order")
+    for i, s in enumerate([spec, two_pot] + [s for _, s in sorted(many.items())]):
+        state = crafted_states(s, B, seed=18 + i)
+        checked_on(s, worst)(layout_on(s.layout, dev), to_torch(state, dev))
+        px, py = pot.build_potential_tables(s).pot_xy.T
+        obj, tick = state.obj.numpy()[py, px], state.soup_tick.numpy()[py, px]
+        n_o = (state.soup_ing.numpy()[py, px] == OBJ_ONION).sum(1)
+        n_t = (state.soup_ing.numpy()[py, px] == OBJ_TOMATO).sum(1)
+        soup, idle = obj == OBJ_SOUP, (obj == OBJ_SOUP) & (tick < 0)
+        ready = soup & (tick >= np.asarray(s.time_np)[n_o, n_t])
+        cases["empty"] += int((~soup).sum())
+        cases["idle"] += int(idle.sum())
+        cases["cooking"] += int((soup & (tick >= 0) & ~ready).sum())
+        cases["ready"] += int(ready.sum())
+        cases["two_idle_envs"] += int((idle.sum(0) >= 2).sum())
+        cases["held_soup"] += int((state.held.numpy() == OBJ_SOUP).sum())
+        cases["held_dish"] += int((state.held.numpy() == OBJ_DISH).sum())
+    out["crafted"] = {"layouts": 2 + len(many), "err": worst["err"].item(),
+                      "ulp": worst["ulp"].item(), "cases": cases}
+
+    # times at 2048 envs on `spec`, on states after 100 random steps
+    lay = layout_on(spec.layout, dev)
+    state = batch_reset(spec.layout, B, dev)
+    for _ in range(100):
+        a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
+        state = fused_train.fused_train_step_tiles(spec.layout, state, a, horizon=400,
+                                                   reset_horizon=401)[0]
+    for _ in range(20):  # warm
+        phi_fn(lay, state)
+    n = 200
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # the launches queue up behind it
+    start.record()
+    for _ in range(n):
+        phi_fn(lay, state)
+    end.record()
+    torch.cuda.synchronize()
+    out["kernel_ms"] = start.elapsed_time(end) / n
+    n_host = 2000
+    t1 = time.perf_counter()
+    for _ in range(n_host):
+        phi_fn(lay, state)
+    out["host_us"] = (time.perf_counter() - t1) / n_host * 1e6
+    torch.cuda.synchronize()
+    n_plain = 50
+    t1 = time.perf_counter()
+    for _ in range(n_plain):
+        pot.potential(lay, ptab, rows, state)
+    torch.cuda.synchronize()
+    out["plain_ms"] = (time.perf_counter() - t1) / n_plain * 1e3
+    K = int(ptab.pot_xy.shape[0])
+    out["bytes_per_env"] = 4 * (2 * (2 + 1 + 1 + 3) + K * (1 + 3 + 1) + 1)
+    out["bound_ms"] = B * out["bytes_per_env"] / H100_BYTES_PER_S * 1e3
+    regs = {}
+    with open(_build.library_path()[:-3] + ".log") as f:
+        name = None
+        for line in f:
+            m = re.search(r"entry function '\w*phi_kernelILi(\d+)E", line)
+            if m:
+                name = f"phi_kernel<{m.group(1)}>"
+            elif "entry function" in line:
+                name = None
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                regs.setdefault(name, [None, None])[0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                regs.setdefault(name, [None, None])[1] = int(m.group(1))
+    out["registers_spills"] = regs
+    out["secs"] = time.perf_counter() - t0
+    log(f"[14e phi kernel] {out['secs']:.2f}s kernel vs plain on the card: PPO_BC + phi "
+        f"rollout {B}x{steps} {json.dumps(out['rollout'])}, 64-layout pool rollout "
+        f"{json.dumps(out['pool_rollout'])}, random play on layouts of "
+        f"{out['many_pots']['pots']} pots {json.dumps(out['many_pots'])}, crafted states "
+        f"{json.dumps(out['crafted'])}; kernel "
+        f"{out['kernel_ms'] * 1e3:.2f} us a launch at {B} envs (bound "
+        f"{out['bound_ms'] * 1e3:.3f} us, {out['bytes_per_env']} bytes an env), wrapper "
+        f"{out['host_us']:.1f} us of host time a call, plain {out['plain_ms']:.2f} ms a call; "
+        f"registers, spill-store bytes {json.dumps(regs)}")
+    runs = (out["rollout"], out["pool_rollout"], out["many_pots"], out["crafted"])
+    if any(r["err"] != 0 or r["ulp"] != 0 for r in runs) or not all(cases.values()) or (
+            out["rollout"]["launches"], out["pool_rollout"]["launches"]) != (steps + 1,) * 2:
+        raise SystemExit("the phi kernel disagrees with its plain version on the card, a "
+                         "rollout did not launch it once a step and once at the reset, or the "
+                         "crafted states missed a case")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -891,7 +1105,13 @@ def main() -> int:
     from overcooked_ai_tpu_torch.core.state import State
     from overcooked_ai_tpu_torch.demo.game import DemoGame, npc_from_kind
     from overcooked_ai_tpu_torch.interop.single_env import OvercookedEnv
-    from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
+    from overcooked_ai_tpu_torch.ops import (
+        _build,
+        fused_phi,
+        fused_pool,
+        fused_rollout,
+        fused_train,
+    )
     from overcooked_ai_tpu_torch.parallel import dryrun
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
     from overcooked_ai_tpu_torch.training.bc import (
@@ -1230,8 +1450,8 @@ def main() -> int:
         f"{b2_old_bounds[T_CMP]:.4f}), max_abs_err={b2_err}")
 
     # ---- the layout-pool path (B3, B4): pools as the JAX bench.py makes them
-    def reset_counts():
-        fused_train.launches = fused_rollout.launches = 0
+    def reset_counts():  # and the phi kernel's, read where phi runs (phase 14)
+        fused_train.launches = fused_rollout.launches = fused_phi.launches = 0
         fused_pool.train_launches = fused_pool.rollout_launches = 0
 
     def counts():
@@ -1786,17 +2006,17 @@ def main() -> int:
     ts_bc = init_bc(0)
     reset_counts()
     (ts_bc, m_bc), t_bc = synced(lambda: timed_iteration(train_bc, ts_bc))
-    bc_counts = counts()
+    bc_counts, phi_bc_launches = counts(), fused_phi.launches
     bc_split = {"rollout": marks["start"].elapsed_time(marks["rollout"]),
                 "gae_std": marks["rollout"].elapsed_time(marks["advantages"]),
                 "sgd": marks["advantages"].elapsed_time(marks["end"])}
     bc_metrics = {k: v.item() for k, v in m_bc._asdict().items()}
     b1_bc_launches = bc_counts[0]
-    if bc_counts != (cfg_bc.horizon, 0, 0, 0) or not all(
-            np.isfinite(v) for v in bc_metrics.values()) or not (
+    if bc_counts != (cfg_bc.horizon, 0, 0, 0) or phi_bc_launches != cfg_bc.horizon + 1 or (
+            not all(np.isfinite(v) for v in bc_metrics.values())) or not (
             0.2 < bc_metrics["bc_sample_fraction"] < 0.3):
         raise SystemExit(f"the PPO_BC + phi iteration: B1/B2/B3/B4 launches {bc_counts}, "
-                         f"metrics {bc_metrics}")
+                         f"phi kernel {phi_bc_launches}, metrics {bc_metrics}")
     # where its rollout's time goes: the device's busy time over a traced
     # 16-step rollout at the same width (device events only: with the host's
     # ops the profiler takes seconds to sum the records)
@@ -1818,8 +2038,8 @@ def main() -> int:
         f"use_phi + phi_event_mix: wall {t_bc:.3f}s = {2048 * 400 / t_bc:.0f} env-steps/s; split "
         f"(events, no host sync after the rollout) ms "
         + json.dumps({k: round(v, 1) for k, v in bc_split.items()})
-        + f"; B1/B2/B3/B4 launches={bc_counts}; bc_sample_fraction "
-        f"{bc_metrics['bc_sample_fraction']:.4f}; episode_total_reward "
+        + f"; B1/B2/B3/B4 launches={bc_counts}, phi kernel {phi_bc_launches}; "
+        f"bc_sample_fraction {bc_metrics['bc_sample_fraction']:.4f}; episode_total_reward "
         f"{bc_metrics['episode_total_reward']:.3f}; traced rollout 2048x16 wall "
         f"{t_bc_prof * 1e3:.1f}ms device busy {busy_bc / 1e3:.1f}ms (idle "
         f"{1 - busy_bc / 1e6 / t_bc_prof:.1%}); eval with the BC seat 8x200 {t_eval_bc:.3f}s "
@@ -1837,15 +2057,21 @@ def main() -> int:
         device=dev)
     reset_counts()
     (_, m_pbc), t_pbc = synced(lambda: train_pbc(init_pbc(0)))
-    pbc_counts = counts()
+    pbc_counts, phi_pbc_launches = counts(), fused_phi.launches
     b3_bc_launches = pbc_counts[2]
-    if pbc_counts != (0, 0, 200, 0) or not all(np.isfinite(v.item()) for v in m_pbc):
+    if pbc_counts != (0, 0, 200, 0) or phi_pbc_launches != 201 or not all(
+            np.isfinite(v.item()) for v in m_pbc):
         raise SystemExit(f"the pool PPO_BC + phi iteration launched B1/B2/B3/B4 {pbc_counts} "
-                         "times or its metrics are not finite")
+                         f"times and the phi kernel {phi_pbc_launches}, or its metrics are not "
+                         "finite")
     log(f"[14c pool PPO_BC + phi] {time.perf_counter() - t0:.2f}s train_iteration 64-layout "
         f"pool 2048x200, 1 epoch, with bc_policy_batch_pool and the pool phi: wall {t_pbc:.3f}s = "
-        f"{2048 * 200 / t_pbc:.0f} env-steps/s; B1/B2/B3/B4 launches={pbc_counts}; "
+        f"{2048 * 200 / t_pbc:.0f} env-steps/s; B1/B2/B3/B4 launches={pbc_counts}, phi kernel "
+        f"{phi_pbc_launches}; "
         f"bc_sample_fraction {m_pbc.bc_sample_fraction.item():.4f}")
+
+    # the phi kernel against its plain version over whole rollouts, its times
+    phi14 = phi_kernel_check(dev, spec, partner, specs64)
 
     # a small PPO_BC + phi iteration on the card and on the CPU from the same
     # params, actions, partner draws (Gumbel noise from numpy), seats and
@@ -2426,6 +2652,16 @@ def main() -> int:
          "threads_sweep_ms": {k: v for k, v in rollout_sweep.items() if k.startswith("B4")},
          "registers_spills": {k: v for k, v in rollout_regs.items() if ",1," in k},
          "entry_outside_ms": b4_outside_ms},
+        {"name": "fused_phi", "route": "cuda",
+         "source": "overcooked_ai_tpu_torch/csrc/fused_phi.cu",
+         "replaces": None, "launches": phi_bc_launches, "pool_launches": phi_pbc_launches,
+         "check_launches": [phi14[k]["launches"] for k in ("rollout", "pool_rollout")],
+         "max_abs_err": max(phi14[k]["err"] for k in ("rollout", "pool_rollout", "many_pots",
+                                                       "crafted")),
+         "ms": phi14["kernel_ms"], "plain_ms": phi14["plain_ms"], "bound_ms": phi14["bound_ms"],
+         "bound_by": "bytes (launch latency in fact)", "library_ms": None,
+         "host_us": phi14["host_us"],
+         "registers_spills": phi14["registers_spills"]},
     ]}
     log(f"[done] profiler sessions made again for want of a record: {len(redone)} "
         f"{sorted(set(redone))}")

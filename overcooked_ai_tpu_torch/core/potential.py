@@ -15,6 +15,10 @@ flight, plus a steady-state term. As in the JAX package it is split in two:
     gather of the player's row of `feature_cost`, and the reference's
     greedy passes unrolled over (K pots) x (3 missing ingredients).
 
+`make_potential_fn` / `make_potential_fn_pool` run `potential` on a CPU
+state and on a CUDA one the phi kernel (`ops.fused_phi`), one launch that
+matches it bit for bit.
+
 float32 on both sides, the same terms in the same order as JAX's
 `potential` (`gamma ** n` powers, a 1e9 infinity); the two agree within
 rtol 1e-5 / atol 1e-4 (`tests/test_torch_potential.py`): XLA's and
@@ -41,6 +45,7 @@ from overcooked_ai_tpu_torch.core.constants import (
 from overcooked_ai_tpu_torch.core.featurize import cell_planes, cost_rows, player_costs
 from overcooked_ai_tpu_torch.core.state import State
 from overcooked_ai_tpu_torch.core.step import slot_counts
+from overcooked_ai_tpu_torch.ops import fused_phi
 from overcooked_ai_tpu_torch.planning.tables import INF_COST
 
 # reference POTENTIAL_CONSTANTS (overcooked_mdp.py:1060-1073)
@@ -184,11 +189,15 @@ def build_potential_tables(spec, gamma: float = 0.99) -> PotentialTables:
     )
 
 
+def _check_pot_counts(tabs) -> None:
+    if len({t.pot_xy.shape for t in tabs}) != 1:
+        raise ValueError("a pool's layouts must have the same number of pots")
+
+
 def stack_potential_tables(tabs) -> PotentialTables:
     """A pool's tables, each leaf stacked on a trailing axis; the pools'
     layouts must have the same number of pots."""
-    if len({t.pot_xy.shape for t in tabs}) != 1:
-        raise ValueError("a pool's layouts must have the same number of pots")
+    _check_pot_counts(tabs)
     return PotentialTables(*(np.stack(leaves, axis=-1) for leaves in zip(*tabs)))
 
 
@@ -366,26 +375,42 @@ def potential(layout, ptab: PotentialTables, feature_cost, state: State,
 
 
 class _PerDevice:
-    """Tables copied to a device once, at the first call there."""
+    """A layout's or a pool's tables, put on a device once, at the first
+    call there: the phi kernel's word block on a card (`kernel`), the plain
+    version's tensors elsewhere (`plain`)."""
 
-    def __init__(self, ptab: PotentialTables, feature_cost):
-        self.ptab, self.feature_cost = ptab, np.asarray(feature_cost)
-        self._on = {}
+    def __init__(self, entries, pool: bool):
+        self.entries = entries  # (PotentialTables, layout, feature_cost) a pool entry
+        self.pool = pool
+        self._kernel, self._plain = {}, {}
 
-    def on(self, device):
-        if device not in self._on:
-            self._on[device] = (tables_on(self.ptab, device),
-                                cost_rows(self.feature_cost).to(device))
-        return self._on[device]
+    def kernel(self, device) -> fused_phi.PhiTables:
+        if device not in self._kernel:
+            self._kernel[device] = fused_phi.pack(self.entries, device)
+        return self._kernel[device]
+
+    def plain(self, device) -> tuple[PotentialTables, torch.Tensor]:
+        if device not in self._plain:
+            ptabs, _, fcs = zip(*self.entries)
+            if self.pool:
+                ptab, fc = stack_potential_tables(ptabs), np.stack(fcs)
+            else:
+                (ptab,), (fc,) = ptabs, fcs
+            self._plain[device] = (tables_on(ptab, device), cost_rows(fc).to(device))
+        return self._plain[device]
 
 
 def make_potential_fn(spec, feature_cost, gamma: float = 0.99):
-    """phi(layout, state) -> (B,) float32 for one layout's batch-last states."""
-    tabs = _PerDevice(build_potential_tables(spec, gamma), feature_cost)
+    """phi(layout, state) -> (B,) float32 for one layout's batch-last states:
+    one launch of the phi kernel on a card, `potential` elsewhere."""
+    ptab = build_potential_tables(spec, gamma)
+    tabs = _PerDevice([(ptab, spec.layout, np.asarray(feature_cost))], pool=False)
 
     def phi(layout, state):
-        ptab, rows = tabs.on(state.obj.device)
-        return potential(layout, ptab, rows, state)
+        dev = state.obj.device
+        if dev.type == "cuda":
+            return fused_phi.launch_kernel(tabs.kernel(dev), state)
+        return potential(layout, *tabs.plain(dev), state)
 
     return phi
 
@@ -398,12 +423,15 @@ def make_potential_fn_pool(specs, gamma: float = 0.99):
     layouts must have the same grid shape and number of pots."""
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
 
-    tabs = _PerDevice(
-        stack_potential_tables([build_potential_tables(s, gamma) for s in specs]),
-        np.stack([build_motion_tables(s.layout.terrain).feature_cost for s in specs]))
+    ptabs = [build_potential_tables(s, gamma) for s in specs]
+    _check_pot_counts(ptabs)
+    tabs = _PerDevice([(t, s.layout, build_motion_tables(s.layout.terrain).feature_cost)
+                       for t, s in zip(ptabs, specs)], pool=True)
 
     def phi(pool_idx, lane_layouts, state):
-        ptab, rows = tabs.on(state.obj.device)
-        return potential(lane_layouts, ptab, rows, state, pool_idx)
+        dev = state.obj.device
+        if dev.type == "cuda":
+            return fused_phi.launch_kernel(tabs.kernel(dev), state, pool_idx)
+        return potential(lane_layouts, *tabs.plain(dev), state, pool_idx)
 
     return phi

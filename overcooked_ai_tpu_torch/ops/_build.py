@@ -159,6 +159,10 @@ def load():
         lib.oc_fused_pool_train_step.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
                                                  i, i, i, i, p]
         lib.oc_fused_pool_train_step.restype = i
+        lib.oc_phi_entry_words.argtypes = [i, i]
+        lib.oc_phi_entry_words.restype = i
+        lib.oc_fused_phi.argtypes = [p, i, i, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
+        lib.oc_fused_phi.restype = i
         if lib.oc_layout_words() != LAYOUT_WORDS:
             raise RuntimeError(
                 f"LayoutData has {lib.oc_layout_words()} words in C, "

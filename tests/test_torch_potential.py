@@ -2,7 +2,10 @@
 `potential`: the host tables field for field on every shipped layout, and
 phi within RTOL / ATOL on rollout states and on crafted states with soups
 idle, partial, cooking and ready, and players holding soups, dishes and
-ingredients; the pool phi per lane on a generated pool.
+ingredients; the pool phi per lane on a generated pool. The phi kernel's side that runs
+without a card (`ops/fused_phi.py`): its word block decodes back to the
+tables on every shipped layout and on a stacked pool, its guards refuse
+what the kernel does not take, and a CPU state runs the plain version.
 
 The tolerance: both sides compute in float32 with the same terms in the
 same order; XLA's and PyTorch's `pow` and sums may differ in the last ulp
@@ -20,8 +23,10 @@ from overcooked_ai_tpu.core import potential as jpot
 from overcooked_ai_tpu.core.layout import from_layout_name as jfrom_layout_name
 from overcooked_ai_tpu_torch.core import layout_generator as gen
 from overcooked_ai_tpu_torch.core import potential as pot
-from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP
+from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP, TERRAIN_POT, TERRAIN_SERVE
+from overcooked_ai_tpu_torch.core.featurize import cost_rows
 from overcooked_ai_tpu_torch.core.layout import available_layouts, from_layout_name
+from overcooked_ai_tpu_torch.ops import fused_phi
 from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
 
 from .torch_states import crafted_states, rollout_states, to_jax
@@ -52,6 +57,7 @@ def test_phi_matches_jax_on_rollout_and_crafted_states(name, overrides):
     jlay = jax.tree.map(jnp.asarray, jspec.layout)
     jphi = jax.jit(lambda s: jpot.make_potential_fn(jspec, fc)(jlay, s))
     phi = pot.make_potential_fn(spec, fc)
+    fused_phi.launches = 0
     batches = list(rollout_states(spec.layout, 32, (30, 120, 300), seed=3).values())
     crafted = crafted_states(spec, 64, seed=4)
     batches.append(crafted)
@@ -60,6 +66,7 @@ def test_phi_matches_jax_on_rollout_and_crafted_states(name, overrides):
         assert got.dtype == torch.float32 and got.shape == (state.obj.shape[-1],)
         np.testing.assert_allclose(got.numpy(), np.asarray(jphi(to_jax(state))), rtol=RTOL,
                                    atol=ATOL)
+    assert fused_phi.launches == 0  # CPU states: the plain version ran
     # the crafted batch reaches every pot case and held soups
     ptab = pot.build_potential_tables(spec)
     px, py = ptab.pot_xy[:, 0], ptab.pot_xy[:, 1]
@@ -89,3 +96,106 @@ def test_pool_of_mixed_pot_counts_raises():
     specs = [from_layout_name("cramped_room"), from_layout_name("mdp_test")]
     with pytest.raises(ValueError, match="number of pots"):
         pot.make_potential_fn_pool(specs)
+
+
+def _pool_specs(n=6, seed=11):
+    g = gen.LayoutGenerator(rng=np.random.RandomState(seed))
+    return [g.generate_spec(name=f"g{i}") for i in range(n)]
+
+
+def _decode(words, K, H, W):
+    """An entry of the phi kernel's word block, read at csrc/fused_phi.cu's
+    offsets: 8 scalars, five (4, 4) tables from word 8, the pot cells from
+    word 88, the serve cells' count and cells, partial_order, the cost rows."""
+    hw = H * W
+    f = words.view(np.float32)
+    out = {name: (f if name in fused_phi._FLOAT_FIELDS else words)[i]
+           for i, name in enumerate(fused_phi.HEAD_FIELDS)}
+    for i, name in enumerate(fused_phi.TABLE_FIELDS + ("delivery_value", "time_table")):
+        src = f if name in fused_phi._FLOAT_FIELDS else words
+        out[name] = src[8 + 16 * i:24 + 16 * i].reshape(4, 4)
+    out["pots"] = words[88:88 + K]
+    n_serve = words[88 + K]
+    out["serve"] = words[89 + K:89 + K + n_serve]
+    o = 89 + K + hw
+    out["partial_order"] = words[o:o + 3**K * K].reshape(3**K, K)
+    o += 3**K * K
+    out["rows"] = words[o:o + 4 * hw * hw].reshape(4 * hw, hw)
+    assert words.size == o + 4 * hw * hw == fused_phi.entry_layout(K, hw).words
+    return out
+
+
+def _check_entry(words, ptab, layout, fc):
+    terrain = np.asarray(layout.terrain)
+    H, W = terrain.shape
+    got = _decode(words, ptab.pot_xy.shape[0], H, W)
+    for name in fused_phi.HEAD_FIELDS + fused_phi.TABLE_FIELDS + ("partial_order",):
+        want = np.asarray(getattr(ptab, name))
+        np.testing.assert_array_equal(got[name].astype(want.dtype), want, err_msg=name)
+    for name in ("delivery_value", "time_table"):
+        np.testing.assert_array_equal(got[name], np.asarray(getattr(layout, name)), err_msg=name)
+    np.testing.assert_array_equal(got["pots"], ptab.pot_xy[:, 1] * W + ptab.pot_xy[:, 0])
+    assert (terrain.reshape(-1)[got["pots"]] == TERRAIN_POT).all()
+    np.testing.assert_array_equal(got["serve"], np.flatnonzero(terrain == TERRAIN_SERVE))
+    np.testing.assert_array_equal(got["rows"], cost_rows(fc).numpy())
+
+
+@pytest.mark.parametrize("name", available_layouts() + ["pool"])
+def test_phi_kernel_words_decode_to_the_tables(name):
+    if name == "pool":  # a stacked pool: an entry per layout, in pool order
+        specs = _pool_specs()
+    else:
+        specs = [from_layout_name(name)]
+    entries = [(pot.build_potential_tables(s), s.layout,
+                build_motion_tables(s.layout.terrain).feature_cost) for s in specs]
+    words = fused_phi.pack_words(entries)
+    assert words.dtype == np.int32 and words.shape[0] == len(specs)
+    for row, entry in zip(words, entries):
+        _check_entry(row, *entry)
+
+
+def _state(batch=8):
+    spec = from_layout_name("counter_circuit_o_1order")
+    return spec, rollout_states(spec.layout, batch, (20,), seed=1)[20]
+
+
+def _three_players(state):
+    return state._replace(**{f: torch.cat([getattr(state, f), getattr(state, f)[:1]])
+                             for f in ("pos", "orient", "held", "held_soup", "held_soup_tick")})
+
+
+def _strided(x):
+    return x.movedim(-1, 0).contiguous().movedim(0, -1)  # same values, batch axis outermost
+
+
+GUARDS = {
+    "too_many_pots": (lambda s: s, fused_phi.MAX_POTS + 1, "MAX_POTS"),
+    "no_pots": (lambda s: s, 0, "MAX_POTS"),
+    "three_players": (_three_players, 2, "2 players"),
+    "int64_leaf": (lambda s: s._replace(obj=s.obj.long()), 2, "int32"),
+    "non_contiguous_leaf": (lambda s: s._replace(soup_ing=_strided(s.soup_ing)), 2,
+                            "contiguous=False"),
+    "wrong_grid": (lambda s: s._replace(obj=s.obj[:, :-1].contiguous()), 2, "int32"),
+}
+
+
+@pytest.mark.parametrize("case", list(GUARDS))
+def test_phi_kernel_guards_refuse_what_it_does_not_take(case):
+    spec, state = _state()
+    edit, num_pots, match = GUARDS[case]
+    H, W = spec.layout.terrain.shape
+    fused_phi.check_inputs(state, 2, H, W, state.obj.device)  # the unedited state passes
+    with pytest.raises(ValueError, match=match):
+        fused_phi.check_inputs(edit(state), num_pots, H, W, state.obj.device)
+
+
+def test_phi_kernel_guards_refuse_another_device_and_a_wrong_pool_index():
+    spec, state = _state()
+    H, W = spec.layout.terrain.shape
+    with pytest.raises(ValueError, match="must be a tensor on meta"):
+        fused_phi.check_inputs(state, 2, H, W, torch.device("meta"))
+    tables = fused_phi.PhiTables(torch.zeros(1, dtype=torch.int32), 2, 1, 2, H, W)
+    with pytest.raises(ValueError, match="pool_idx must be"):
+        fused_phi.launch_kernel(tables, state, torch.zeros(3, dtype=torch.long))
+    with pytest.raises(ValueError, match="needs pool_idx"):
+        fused_phi.launch_kernel(tables, state)

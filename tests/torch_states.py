@@ -3,14 +3,12 @@ tests: the states of an interact-heavy random rollout on the port's plain
 step (bit for bit the JAX step, `tests/test_torch_step_env.py`), and crafted
 states with objects on every kind of counter, soups idle, cooking and ready
 in the pots and on counters, held objects of every kind, and counter
-objects whose placement stamps tie."""
+objects whose placement stamps tie. Only `to_jax` imports JAX, so the card's
+smoke run (`chip_smoke.py`), on a host without it, takes the batches too."""
 
 import numpy as np
 import torch
 
-import jax.numpy as jnp
-
-from overcooked_ai_tpu.core.state import State as JState
 from overcooked_ai_tpu_torch.core.constants import (
     OBJ_DISH,
     OBJ_ONION,
@@ -103,6 +101,10 @@ def crafted_states(spec, batch, seed=0):
     return State(*(torch.from_numpy(np.stack(leaves, axis=-1)) for leaves in zip(*cols)))
 
 
-def to_jax(state: State) -> JState:
+def to_jax(state: State):
     """A port State (tensors or numpy) -> the JAX package's State of jnp arrays."""
+    import jax.numpy as jnp
+
+    from overcooked_ai_tpu.core.state import State as JState
+
     return JState(*(jnp.asarray(np.asarray(x)) for x in state))
