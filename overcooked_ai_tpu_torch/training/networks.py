@@ -12,6 +12,9 @@ the global RNG.
 timestep, dense layers with leaky-ReLU 0.2 (no D2RL), an LSTM of
 `cell_size` (`LSTMCell`, flax's `OptimizedLSTMCell`: carry (c, h)), then
 the `logits` and `values` heads with flax's default LeCun-normal kernels.
+Its spans (`utils/trace.py`): `lstm.torso` and `lstm.recurrence` (with the
+card's time) around the torso and the cell's steps of `forward`, and
+`lstm.step` (host time only) around the cell of `step`.
 
 `NetConfig.compute_dtype` follows flax's dtype semantics: the params stay
 float32, the conv and dense torso computes in that dtype, and the heads
@@ -31,6 +34,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from overcooked_ai_tpu_torch.utils.trace import span
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (c, h), each (N, cell_size) float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -239,14 +244,18 @@ class LSTMPPONet(nn.Module):
         """obs_seq (N, T, H, W, C) -> (logits (N, T, A), value (N, T), the
         final carry); `carry` None starts from zeros."""
         n, t = obs_seq.shape[:2]
-        feats = self.torso(obs_seq.reshape((n * t,) + obs_seq.shape[2:])).view(n, t, -1)
+        with span("lstm.torso", device=True):
+            feats = self.torso(obs_seq.reshape((n * t,) + obs_seq.shape[2:])).view(n, t, -1)
         if carry is None:
             carry = self.initial_carry(n, obs_seq.device)
-        hs, carry = self.lstm(feats, carry)
+        with span("lstm.recurrence", device=True):
+            hs, carry = self.lstm(feats, carry)
         return self.logits(hs), self.values(hs)[..., 0], carry
 
     def step(self, obs: torch.Tensor, carry: Carry):
         """obs (N, H, W, C) -> (logits (N, A), value (N,), the next carry)."""
-        carry = self.lstm.step(self.torso(obs), carry)
+        feats = self.torso(obs)
+        with span("lstm.step"):  # host only: an event pair a step would cost more than the cell
+            carry = self.lstm.step(feats, carry)
         h = carry[1]
         return self.logits(h), self.values(h)[:, 0], carry

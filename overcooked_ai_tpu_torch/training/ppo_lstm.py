@@ -19,6 +19,11 @@ phi(s) alone: `phi_event_mix` is not read here.
 
 The rollout keeps the carry only at the chunk starts (T / 20 of T steps),
 not at every step.
+
+`train_iteration` opens `make_ppo`'s spans (`utils/trace.py`) under the
+same names: `ppo.iteration`, `ppo.advantages`, `ppo.sgd` and, a minibatch,
+`sgd.forward` around the gather, the forward and the loss; `LSTMPPONet`
+adds `lstm.torso`, `lstm.recurrence` and `lstm.step` inside them.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from overcooked_ai_tpu_torch.training.ppo import (
     sgd_step,
     standardize,
 )
+from overcooked_ai_tpu_torch.utils.trace import span
 
 MAX_SEQ_LEN = 20  # rllib's default
 
@@ -126,35 +132,40 @@ def make_ppo_lstm(spec, config: PPOConfig, bc_policy=None, potential_fn=None, de
                         perm_fn: Optional[Callable[[int], torch.Tensor]] = None,
                         on_phase: Optional[PhaseFn] = None, bc_draws=None,
                         bc_sample_fn: Optional[SampleFn] = None):
-        shaping_factor, entropy_coeff, bc_factor = schedules(config, ts.env_steps)
-        policy = _Recurrent(ts.net, N, device, T)
-        ro = collect_rollout(spec, policy, rollout_config, ts.generator, device, sample_fn,
-                             None, pool_idx, shaping_factor, potential_fn, bc_policy, bc_factor,
-                             bc_draws, bc_sample_fn)
-        if on_phase:
-            on_phase("rollout", ro)
-        adv, value_targets = gae(ro.reward, ro.value, config.gamma, config.lmbda)
-        adv = standardize(adv, ro.mask)
-        if on_phase:
-            on_phase("advantages", (adv, value_targets))
+        with span("ppo.iteration", device=True):
+            shaping_factor, entropy_coeff, bc_factor = schedules(config, ts.env_steps)
+            policy = _Recurrent(ts.net, N, device, T)
+            ro = collect_rollout(spec, policy, rollout_config, ts.generator, device, sample_fn,
+                                 None, pool_idx, shaping_factor, potential_fn, bc_policy,
+                                 bc_factor, bc_draws, bc_sample_fn)
+            if on_phase:
+                on_phase("rollout", ro)
+            with span("ppo.advantages", device=True):
+                adv, value_targets = gae(ro.reward, ro.value, config.gamma, config.lmbda)
+                adv = standardize(adv, ro.mask)
+                if on_phase:
+                    on_phase("advantages", (adv, value_targets))
 
-        obs, *rest = (chunk(x) for x in (ro.obs, ro.action, ro.logp, ro.logits, ro.value, adv,
-                                         value_targets, ro.mask))
-        c0, h0 = chunk_first(policy.c0), chunk_first(policy.h0)
-        params = list(ts.net.parameters())
-        for epoch in range(config.num_sgd_iter):
-            if perm_fn is None:
-                perm = torch.randperm(n_chunks, generator=ts.generator, device=device)
-            else:
-                perm = torch.as_tensor(perm_fn(epoch), device=device)
-            for i in range(n_minibatches):
-                idx = perm[i * mb_chunks:(i + 1) * mb_chunks]
-                logits, value, _ = ts.net(obs[idx], (c0[idx], h0[idx]))
-                total, aux = ppo_loss(logits.flatten(0, 1), value.flatten(),
-                                      tuple(x[idx].flatten(0, 1) for x in rest), ts.kl_coeff,
-                                      entropy_coeff, config)
-                sgd_step(ts, total, params, config)
-        return finish_iteration(ts, ro, aux, config, shaping_factor, entropy_coeff, bc_factor)
+            obs, *rest = (chunk(x) for x in (ro.obs, ro.action, ro.logp, ro.logits, ro.value,
+                                             adv, value_targets, ro.mask))
+            c0, h0 = chunk_first(policy.c0), chunk_first(policy.h0)
+            with span("ppo.sgd", device=True):
+                params = list(ts.net.parameters())
+                for epoch in range(config.num_sgd_iter):
+                    if perm_fn is None:
+                        perm = torch.randperm(n_chunks, generator=ts.generator, device=device)
+                    else:
+                        perm = torch.as_tensor(perm_fn(epoch), device=device)
+                    for i in range(n_minibatches):
+                        with span("sgd.forward", device=True):
+                            idx = perm[i * mb_chunks:(i + 1) * mb_chunks]
+                            logits, value, _ = ts.net(obs[idx], (c0[idx], h0[idx]))
+                            total, aux = ppo_loss(logits.flatten(0, 1), value.flatten(),
+                                                  tuple(x[idx].flatten(0, 1) for x in rest),
+                                                  ts.kl_coeff, entropy_coeff, config)
+                        sgd_step(ts, total, params, config)
+            return finish_iteration(ts, ro, aux, config, shaping_factor, entropy_coeff,
+                                    bc_factor)
 
     return init_fn, train_iteration
 
