@@ -75,7 +75,15 @@ Phases, one line each with its seconds:
      phi rollout at 2048 x 400 on `cramped_room`, of a 64-layout pool rollout
      and of random play on generated layouts of 3-7 pots, one launch a step
      and one at the reset, its time a launch, the wrapper's host time a call
-     and the plain version's; a small PPO_BC + phi iteration on the card against the CPU; the
+     and the plain version's; (f) the BC partner kernel (`ops/fused_bc`)
+     against the plain version on the card at every step of a PPO_BC + phi
+     rollout at 2048 x 400 on `cramped_room` and of a 64-layout pool
+     rollout, and on crafted states of layouts of 1-7 pots, its features
+     (through its features output) bit for bit and its logits within 1e-6
+     of the largest |logit|, one launch a step (400 a `train_iteration` in
+     (b), 200 in the pool's), its registers, its time a launch, the
+     wrapper's host time a call and the plain version's; a small PPO_BC +
+     phi iteration on the card against the CPU; the
      `train_bc_proxy`, `train_ppo --bc-model --use-phi` and `eval_matrix`
      (a `bc:` agent) CLIs in process;
  15. the recurrent learner: `LSTMPPONet` (NetConfig() widths, cell 256) on
@@ -117,7 +125,7 @@ Phases, one line each with its seconds:
      PPONet at 2048 x 400 (B1 400 launches), a 64 x 120 run across an
      auto-reset held bit for bit against the CPU's replay of its actions,
      and B1's refusals of 1 player and of a horizon past its stamp bound.
-The kernel-against-plain holds of phases 3, 4, 6, 7, 8 and 11, and the CPU
+The kernel-against-plain holds of phases 3, 4, 6, 7, 8, 11 and 14f, and the CPU
 replays of phases 13, 16c and 17c, and [cert] (every certificate of the
 49-layout dynamics replay, `cli/certify_layouts`, on the card: B1 a step
 on the 2-player layouts, B2 on every layout, both dynamics; its line
@@ -785,6 +793,120 @@ def job_cert(old_dynamics):
     return {"err": 0, **counts, "b1": fused_train.launches, "b2": fused_rollout.launches}
 
 
+BC_STEPS = 400  # steps of 14f's rollouts
+
+
+def _bc_held(worst, partner, net, rows, label):
+    """`partner` (a `training.bc` batch partner) with every call's kernel
+    logits and features held against the plain version's on the same card:
+    `featurize_batch` with `rows`, then `net`. The largest feature
+    |difference| and logit |difference| and |logit| kept in `worst[label]`
+    (no host sync); the actions are the kernel's logits' sample."""
+    import torch
+
+    from overcooked_ai_tpu_torch.core.featurize import featurize_batch
+    from overcooked_ai_tpu_torch.ops import fused_bc
+
+    zero = torch.zeros((), device=_card())
+    worst[label] = {"feat": zero, "logit": zero, "ref": zero}
+
+    def fn(sample, layout, state, pool_idx=None):
+        got, feats = fused_bc.launch_kernel(partner.on(state.obj.device), state, pool_idx,
+                                            with_features=True)
+        want_f = featurize_batch(layout, rows, state, pool_idx=pool_idx)
+        want_f = want_f.reshape(-1, want_f.shape[-1])
+        want = net(want_f)
+        w = worst[label]
+        w["feat"] = torch.maximum(w["feat"], (feats - want_f).abs().max())
+        w["logit"] = torch.maximum(w["logit"], (got - want).abs().max())
+        w["ref"] = torch.maximum(w["ref"], want.abs().max())
+        return partner.act(sample, got).reshape(state.obj.shape[-1], -1).T.to(torch.int32)
+
+    return fn
+
+
+def job_bc(kind):
+    """14f's hold: the BC kernel against its plain version on the card, its
+    features through the kernel's features output and its logits, at every
+    step of a PPO_BC rollout at 2048 envs x BC_STEPS (`rollout`: cramped_room
+    with phi; `pool`: the 64-layout pool, each lane on its own entry), or
+    (`crafted`) on crafted states, tie stamps included, of cramped_room, a
+    2-pot layout and generated layouts of 3-7 pots. The kernel's launches a
+    rollout counted."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.core.constants import TERRAIN_POT
+    from overcooked_ai_tpu_torch.core.featurize import cost_rows
+    from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
+    from overcooked_ai_tpu_torch.core.layout_generator import LayoutGenerator
+    from overcooked_ai_tpu_torch.core.potential import make_potential_fn
+    from overcooked_ai_tpu_torch.core.state import to_torch
+    from overcooked_ai_tpu_torch.ops import fused_bc
+    from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
+    from overcooked_ai_tpu_torch.training import bc
+    from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
+    from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout
+    from tests.torch_states import crafted_states
+
+    import bench_torch
+
+    dev, B = _card(), 2048
+    params, cfg = bc.load_bc_model(bench_torch.BC_PROXY)
+    net_bc = bc.bc_net(params, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    worst, launches = {}, {}
+    with torch.no_grad():
+        if kind == "rollout":
+            spec = from_layout_name("cramped_room")
+            fc = build_motion_tables(spec.layout.terrain).feature_cost
+            partner = bc.bc_policy_batch(spec, fc, params, cfg)
+            held = _bc_held(worst, partner, net_bc, cost_rows(fc).to(dev), "rollout")
+            net = PPONet(NetConfig(), spec.height, spec.width,
+                         generator=torch.Generator().manual_seed(20)).to(dev)
+            fused_bc.launches = 0
+            collect_rollout(spec, net, PPOConfig(num_envs=B, horizon=BC_STEPS, use_phi=True,
+                                                 phi_event_mix=True), gen, dev,
+                            potential_fn=make_potential_fn(spec, fc), bc_policy=held,
+                            bc_factor=0.5)
+            launches["rollout"] = fused_bc.launches
+        elif kind == "pool":
+            _, specs64 = make_pool(64)
+            fcs = [build_motion_tables(s.layout.terrain).feature_cost for s in specs64]
+            partner = bc.bc_policy_batch_pool(specs64, fcs, params, cfg)
+            held = _bc_held(worst, partner, net_bc, cost_rows(np.stack(fcs)).to(dev), "pool")
+            net = PPONet(NetConfig(), specs64[0].height, specs64[0].width,
+                         generator=torch.Generator().manual_seed(21)).to(dev)
+            fused_bc.launches = 0
+            collect_rollout(specs64, net, PPOConfig(num_envs=B, horizon=BC_STEPS), gen, dev,
+                            bc_policy=held, bc_factor=0.5)
+            launches["pool"] = fused_bc.launches
+        else:
+            many, seed = [], 0  # generated layouts of 3-7 pots, as 14e's
+            while len(many) < 5 and seed < 200:
+                s = LayoutGenerator(outer_shape=(9, 7), prop_feats=0.6,
+                                    rng=np.random.RandomState(seed)).generate_spec(
+                                        name=f"pots_{seed}")
+                k = int((np.asarray(s.layout.terrain) == TERRAIN_POT).sum())
+                if 3 <= k <= 7 and k not in [n for n, _ in many]:
+                    many.append((k, s))
+                seed += 1
+            for i, s in enumerate([from_layout_name("cramped_room"),
+                                   from_layout_name("counter_circuit_o_1order")]
+                                  + [s for _, s in sorted(many)]):
+                fc = build_motion_tables(s.layout.terrain).feature_cost
+                one = bc.bc_policy_batch(s, fc, params, cfg)
+                check = _bc_held(worst, one, net_bc, cost_rows(fc).to(dev), f"crafted {i}")
+                check(lambda lg: torch.argmax(lg, -1), layout_on(s.layout, dev),
+                      to_torch(crafted_states(s, B, seed=20 + i), dev))
+            launches["pots"] = sorted(k for k, _ in many)
+    out = {label: {"feat_err": w["feat"].item(),
+                   "logit_rel": (w["logit"] / w["ref"]).item()} for label, w in worst.items()}
+    return {"worst": out, "launches": launches,
+            "feat_err": max(v["feat_err"] for v in out.values()),
+            "logit_rel": max(v["logit_rel"] for v in out.values())}
+
+
 # phase 17's data-parallel cases (`parallel/dryrun.py`): a one-rank NCCL
 # mesh at 12c's shape; two gloo ranks on the one card at phase 12's width,
 # one epoch, on cramped_room and on 12b's pool and regenerated pool
@@ -825,7 +947,10 @@ def parity_jobs():
              ("13 greedy counter_circuit_o_1order", job_pair_replay,
               ("greedy", "counter_circuit_o_1order", 1024, 13, 200)),
              ("16c LSTM agent cramped_room", job_pair_replay,
-              ("lstm", "cramped_room", 8, 16, 50))]
+              ("lstm", "cramped_room", 8, 16, 50)),
+             ("14f BC kernel rollout", job_bc, ("rollout",)),
+             ("14f BC kernel pool", job_bc, ("pool",)),
+             ("14f BC kernel crafted", job_bc, ("crafted",))]
             + [(f"4 B1 case {k}", job_b1, (k,)) for k in range(B1_CASES)]
             + [(f"8 B3 {c}", job_b3, (k,)) for k, c in enumerate(B3_CASES)]
             + [(f"7 B4 {c}", job_b4, (k,)) for k, c in enumerate(B4_CASES)]
@@ -874,6 +999,75 @@ def _phi_held(worst, kernel_fn, plain_fn):
     return fn
 
 
+def random_play_state(spec, B, rng, steps=100):
+    """`spec`'s batch-last state on the card after `steps` interact-heavy
+    random B1 steps at B envs."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.core.env import batch_reset
+    from overcooked_ai_tpu_torch.ops import fused_train
+
+    dev = _card()
+    state = batch_reset(spec.layout, B, dev)
+    for _ in range(steps):
+        a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
+        state = fused_train.fused_train_step_tiles(spec.layout, state, a, horizon=400,
+                                                   reset_horizon=401)[0]
+    return state
+
+
+def launch_times(call, plain, n=200, n_host=2000, n_plain=50):
+    """A kernel's wrapper `call()` timed three ways: its device time a
+    launch in ms (CUDA events around n launches queued behind a sleep), its
+    host time a call in us, and `plain()`'s time a call in ms."""
+    import torch
+
+    for _ in range(20):  # warm
+        call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # the launches queue up behind it
+    start.record()
+    for _ in range(n):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    kernel_ms = start.elapsed_time(end) / n
+    t1 = time.perf_counter()
+    for _ in range(n_host):
+        call()
+    host_us = (time.perf_counter() - t1) / n_host * 1e6
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_plain):
+        plain()
+    torch.cuda.synchronize()
+    return kernel_ms, host_us, (time.perf_counter() - t1) / n_plain * 1e3
+
+
+def kernel_registers(pattern, name_of):
+    """ptxas's [registers, spill-store bytes] of each entry function whose
+    line matches `pattern`, under `name_of(match)`."""
+    from overcooked_ai_tpu_torch.ops import _build
+
+    regs, name = {}, None
+    with open(_build.library_path()[:-3] + ".log") as f:
+        for line in f:
+            m = re.search(pattern, line)
+            if m:
+                name = name_of(m)
+            elif "entry function" in line:
+                name = None
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                regs.setdefault(name, [None, None])[0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                regs.setdefault(name, [None, None])[1] = int(m.group(1))
+    return regs
+
+
 def phi_kernel_check(dev, spec, partner, specs64, steps=400, B=2048):
     """Phase 14e: the phi kernel against the plain version on the card over
     every state of a PPO_BC + phi rollout at 2048 envs x `steps` on
@@ -899,7 +1093,7 @@ def phi_kernel_check(dev, spec, partner, specs64, steps=400, B=2048):
     from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
     from overcooked_ai_tpu_torch.core.layout_generator import LayoutGenerator
     from overcooked_ai_tpu_torch.core.state import to_torch
-    from overcooked_ai_tpu_torch.ops import _build, fused_phi, fused_train
+    from overcooked_ai_tpu_torch.ops import fused_phi, fused_train
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
     from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
     from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout
@@ -1001,53 +1195,14 @@ def phi_kernel_check(dev, spec, partner, specs64, steps=400, B=2048):
 
     # times at 2048 envs on `spec`, on states after 100 random steps
     lay = layout_on(spec.layout, dev)
-    state = batch_reset(spec.layout, B, dev)
-    for _ in range(100):
-        a = torch.from_numpy(rng.choice(6, size=(2, B), p=PROB).astype(np.int32)).to(dev)
-        state = fused_train.fused_train_step_tiles(spec.layout, state, a, horizon=400,
-                                                   reset_horizon=401)[0]
-    for _ in range(20):  # warm
-        phi_fn(lay, state)
-    n = 200
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)  # the launches queue up behind it
-    start.record()
-    for _ in range(n):
-        phi_fn(lay, state)
-    end.record()
-    torch.cuda.synchronize()
-    out["kernel_ms"] = start.elapsed_time(end) / n
-    n_host = 2000
-    t1 = time.perf_counter()
-    for _ in range(n_host):
-        phi_fn(lay, state)
-    out["host_us"] = (time.perf_counter() - t1) / n_host * 1e6
-    torch.cuda.synchronize()
-    n_plain = 50
-    t1 = time.perf_counter()
-    for _ in range(n_plain):
-        pot.potential(lay, ptab, rows, state)
-    torch.cuda.synchronize()
-    out["plain_ms"] = (time.perf_counter() - t1) / n_plain * 1e3
+    state = random_play_state(spec, B, rng)
+    out["kernel_ms"], out["host_us"], out["plain_ms"] = launch_times(
+        lambda: phi_fn(lay, state), lambda: pot.potential(lay, ptab, rows, state))
     K = int(ptab.pot_xy.shape[0])
     out["bytes_per_env"] = 4 * (2 * (2 + 1 + 1 + 3) + K * (1 + 3 + 1) + 1)
     out["bound_ms"] = B * out["bytes_per_env"] / H100_BYTES_PER_S * 1e3
-    regs = {}
-    with open(_build.library_path()[:-3] + ".log") as f:
-        name = None
-        for line in f:
-            m = re.search(r"entry function '\w*phi_kernelILi(\d+)E", line)
-            if m:
-                name = f"phi_kernel<{m.group(1)}>"
-            elif "entry function" in line:
-                name = None
-            m = re.search(r"Used (\d+) registers", line)
-            if m and name:
-                regs.setdefault(name, [None, None])[0] = int(m.group(1))
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and name:
-                regs.setdefault(name, [None, None])[1] = int(m.group(1))
+    regs = kernel_registers(r"entry function '\w*phi_kernelILi(\d+)E",
+                            lambda m: f"phi_kernel<{m.group(1)}>")
     out["registers_spills"] = regs
     out["secs"] = time.perf_counter() - t0
     log(f"[14e phi kernel] {out['secs']:.2f}s kernel vs plain on the card: PPO_BC + phi "
@@ -1065,6 +1220,75 @@ def phi_kernel_check(dev, spec, partner, specs64, steps=400, B=2048):
         raise SystemExit("the phi kernel disagrees with its plain version on the card, a "
                          "rollout did not launch it once a step and once at the reset, or the "
                          "crafted states missed a case")
+    return out
+
+
+def bc_kernel_check(dev, spec, jobs, B=2048):
+    """Phase 14f: the BC kernel (`ops/fused_bc`) against its plain version
+    on the card, from the parity jobs `job_bc` (features bit for bit,
+    logits within 1e-6 of the largest |logit|, one launch a rollout step);
+    here its registers, its device time a launch (CUDA events around
+    launches queued behind a sleep), the wrapper's host time a call and the
+    plain version's time a call at `B` envs of `spec`. Returns the phase's
+    numbers; raises SystemExit on a difference or a launch count off."""
+    import numpy as np
+    import torch
+
+    from overcooked_ai_tpu_torch.core.featurize import cost_rows, featurize_batch
+    from overcooked_ai_tpu_torch.core.layout import layout_on
+    from overcooked_ai_tpu_torch.ops import fused_bc
+    from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
+    from overcooked_ai_tpu_torch.training import bc
+
+    import bench_torch
+
+    t0 = time.perf_counter()
+    params, cfg = bc.load_bc_model(bench_torch.BC_PROXY)
+    fc = build_motion_tables(spec.layout.terrain).feature_cost
+    partner = bc.bc_policy_batch(spec, fc, params, cfg)
+    net, rows = bc.bc_net(params, cfg, dev), cost_rows(fc).to(dev)
+    lay = layout_on(spec.layout, dev)
+    state = random_play_state(spec, B, np.random.RandomState(20))
+
+    def plain():
+        with torch.no_grad():
+            return net(featurize_batch(lay, rows, state).reshape(2 * B, -1))
+
+    out = {"jobs": {k[4:]: v for k, v in jobs.items()}}
+    out["kernel_ms"], out["host_us"], out["plain_ms"] = launch_times(
+        lambda: partner.logits(lay, state), plain)
+    # the bound: the MLP's float32 multiply-adds (biases counted) on every
+    # row, or the state read and the logits written, at the data sheet's rates
+    widths = fused_bc.pack_weights(params, cfg.net_arch, cfg.num_actions)[1]
+    flops = 2 * sum((a + 1) * b for a, b in zip(widths[:-1], widths[1:])) * 2 * B
+    hw = spec.height * spec.width
+    out["bytes_per_env"] = 4 * (2 * 2 + 2 + 2 + 2 * 3 + hw * 6) + 4 * 2 * cfg.num_actions
+    flop_ms, byte_ms = flops / 67e12 * 1e3, B * out["bytes_per_env"] / H100_BYTES_PER_S * 1e3
+    out["bound_ms"] = max(flop_ms, byte_ms)
+    out["bound_by"] = "operations" if flop_ms > byte_ms else "bytes"
+    regs = kernel_registers(r"entry function '\w*bc_kernel", lambda m: "bc_kernel")
+    regs = regs.get("bc_kernel", [None, None])
+    out["registers_spills"] = regs
+    out["secs"] = time.perf_counter() - t0
+    launches = {k: v for job in jobs.values() for k, v in job["launches"].items()}
+    out["launches"] = launches
+    out["feat_err"] = max(v["feat_err"] for v in jobs.values())
+    out["logit_rel"] = max(v["logit_rel"] for v in jobs.values())
+    log(f"[14f BC partner kernel] {out['secs']:.2f}s here, "
+        f"{max(v['secs'] for v in jobs.values()):.2f}s (longest job) kernel vs plain on the "
+        f"card: PPO_BC + phi rollout {B}x{BC_STEPS} on cramped_room and a 64-layout pool rollout, "
+        f"crafted states on layouts of 1, 2 and {launches['pots']} pots: features max_abs_err "
+        f"{out['feat_err']}, logits max |diff| / max |ref| {out['logit_rel']:.3g} (limit 1e-6; "
+        f"float32 sums in another order than cuBLAS's), launches {json.dumps(launches)}; "
+        + json.dumps({k: v["worst"] for k, v in out["jobs"].items()})
+        + f"; kernel {out['kernel_ms'] * 1e3:.2f} us a launch at {B} envs (bound "
+        f"{out['bound_ms'] * 1e3:.3f} us by {out['bound_by']}), wrapper {out['host_us']:.1f} us "
+        f"of host time a call, plain {out['plain_ms']:.2f} ms a call; registers, spill-store "
+        f"bytes {regs}")
+    if out["feat_err"] != 0 or out["logit_rel"] > 1e-6 or (
+            launches["rollout"], launches["pool"]) != (BC_STEPS,) * 2:
+        raise SystemExit("the BC kernel disagrees with its plain version on the card, or a "
+                         "rollout did not launch it once a step")
     return out
 
 
@@ -1107,6 +1331,7 @@ def main() -> int:
     from overcooked_ai_tpu_torch.interop.single_env import OvercookedEnv
     from overcooked_ai_tpu_torch.ops import (
         _build,
+        fused_bc,
         fused_phi,
         fused_pool,
         fused_rollout,
@@ -1450,8 +1675,9 @@ def main() -> int:
         f"{b2_old_bounds[T_CMP]:.4f}), max_abs_err={b2_err}")
 
     # ---- the layout-pool path (B3, B4): pools as the JAX bench.py makes them
-    def reset_counts():  # and the phi kernel's, read where phi runs (phase 14)
+    def reset_counts():  # and the phi and BC kernels', read where they run (phase 14)
         fused_train.launches = fused_rollout.launches = fused_phi.launches = 0
+        fused_bc.launches = 0
         fused_pool.train_launches = fused_pool.rollout_launches = 0
 
     def counts():
@@ -2006,17 +2232,20 @@ def main() -> int:
     ts_bc = init_bc(0)
     reset_counts()
     (ts_bc, m_bc), t_bc = synced(lambda: timed_iteration(train_bc, ts_bc))
-    bc_counts, phi_bc_launches = counts(), fused_phi.launches
+    bc_counts, phi_bc_launches, bc_kernel_launches = counts(), fused_phi.launches, \
+        fused_bc.launches
     bc_split = {"rollout": marks["start"].elapsed_time(marks["rollout"]),
                 "gae_std": marks["rollout"].elapsed_time(marks["advantages"]),
                 "sgd": marks["advantages"].elapsed_time(marks["end"])}
     bc_metrics = {k: v.item() for k, v in m_bc._asdict().items()}
     b1_bc_launches = bc_counts[0]
     if bc_counts != (cfg_bc.horizon, 0, 0, 0) or phi_bc_launches != cfg_bc.horizon + 1 or (
+            bc_kernel_launches != cfg_bc.horizon) or (
             not all(np.isfinite(v) for v in bc_metrics.values())) or not (
             0.2 < bc_metrics["bc_sample_fraction"] < 0.3):
         raise SystemExit(f"the PPO_BC + phi iteration: B1/B2/B3/B4 launches {bc_counts}, "
-                         f"phi kernel {phi_bc_launches}, metrics {bc_metrics}")
+                         f"phi kernel {phi_bc_launches}, BC kernel {bc_kernel_launches}, "
+                         f"metrics {bc_metrics}")
     # where its rollout's time goes: the device's busy time over a traced
     # 16-step rollout at the same width (device events only: with the host's
     # ops the profiler takes seconds to sum the records)
@@ -2038,7 +2267,8 @@ def main() -> int:
         f"use_phi + phi_event_mix: wall {t_bc:.3f}s = {2048 * 400 / t_bc:.0f} env-steps/s; split "
         f"(events, no host sync after the rollout) ms "
         + json.dumps({k: round(v, 1) for k, v in bc_split.items()})
-        + f"; B1/B2/B3/B4 launches={bc_counts}, phi kernel {phi_bc_launches}; "
+        + f"; B1/B2/B3/B4 launches={bc_counts}, phi kernel {phi_bc_launches}, BC kernel "
+        f"{bc_kernel_launches}; "
         f"bc_sample_fraction {bc_metrics['bc_sample_fraction']:.4f}; episode_total_reward "
         f"{bc_metrics['episode_total_reward']:.3f}; traced rollout 2048x16 wall "
         f"{t_bc_prof * 1e3:.1f}ms device busy {busy_bc / 1e3:.1f}ms (idle "
@@ -2057,21 +2287,24 @@ def main() -> int:
         device=dev)
     reset_counts()
     (_, m_pbc), t_pbc = synced(lambda: train_pbc(init_pbc(0)))
-    pbc_counts, phi_pbc_launches = counts(), fused_phi.launches
+    pbc_counts, phi_pbc_launches, bc_pool_launches = counts(), fused_phi.launches, \
+        fused_bc.launches
     b3_bc_launches = pbc_counts[2]
-    if pbc_counts != (0, 0, 200, 0) or phi_pbc_launches != 201 or not all(
-            np.isfinite(v.item()) for v in m_pbc):
+    if pbc_counts != (0, 0, 200, 0) or phi_pbc_launches != 201 or bc_pool_launches != 200 or \
+            not all(np.isfinite(v.item()) for v in m_pbc):
         raise SystemExit(f"the pool PPO_BC + phi iteration launched B1/B2/B3/B4 {pbc_counts} "
-                         f"times and the phi kernel {phi_pbc_launches}, or its metrics are not "
-                         "finite")
+                         f"times, the phi kernel {phi_pbc_launches} and the BC kernel "
+                         f"{bc_pool_launches}, or its metrics are not finite")
     log(f"[14c pool PPO_BC + phi] {time.perf_counter() - t0:.2f}s train_iteration 64-layout "
         f"pool 2048x200, 1 epoch, with bc_policy_batch_pool and the pool phi: wall {t_pbc:.3f}s = "
         f"{2048 * 200 / t_pbc:.0f} env-steps/s; B1/B2/B3/B4 launches={pbc_counts}, phi kernel "
-        f"{phi_pbc_launches}; "
+        f"{phi_pbc_launches}, BC kernel {bc_pool_launches}; "
         f"bc_sample_fraction {m_pbc.bc_sample_fraction.item():.4f}")
 
     # the phi kernel against its plain version over whole rollouts, its times
     phi14 = phi_kernel_check(dev, spec, partner, specs64)
+    # the BC kernel: its holds ran as parity jobs; its times here
+    bc14 = bc_kernel_check(dev, spec, jobs_of("14f "))
 
     # a small PPO_BC + phi iteration on the card and on the CPU from the same
     # params, actions, partner draws (Gumbel noise from numpy), seats and
@@ -2662,6 +2895,14 @@ def main() -> int:
          "bound_by": "bytes (launch latency in fact)", "library_ms": None,
          "host_us": phi14["host_us"],
          "registers_spills": phi14["registers_spills"]},
+        {"name": "fused_bc", "route": "cuda",
+         "source": "overcooked_ai_tpu_torch/csrc/fused_bc.cu",
+         "replaces": None, "launches": bc_kernel_launches, "pool_launches": bc_pool_launches,
+         "check_launches": [bc14["launches"][k] for k in ("rollout", "pool")],
+         "max_abs_err": bc14["feat_err"], "logit_rel_err": bc14["logit_rel"],
+         "ms": bc14["kernel_ms"], "plain_ms": bc14["plain_ms"], "bound_ms": bc14["bound_ms"],
+         "bound_by": bc14["bound_by"], "library_ms": None, "host_us": bc14["host_us"],
+         "registers_spills": bc14["registers_spills"]},
     ]}
     log(f"[done] profiler sessions made again for want of a record: {len(redone)} "
         f"{sorted(set(redone))}")

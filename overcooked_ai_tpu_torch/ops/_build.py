@@ -22,7 +22,9 @@ pointer struct (`state_arrays`).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -163,6 +165,10 @@ def load():
         lib.oc_phi_entry_words.restype = i
         lib.oc_fused_phi.argtypes = [p, i, i, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
         lib.oc_fused_phi.restype = i
+        lib.oc_bc_entry_words.argtypes = [i]
+        lib.oc_bc_entry_words.restype = i
+        lib.oc_fused_bc.argtypes = [p, i, i, p, i, i, i, p, i, p, *[p] * 8, p, p, p]
+        lib.oc_fused_bc.restype = i
         if lib.oc_layout_words() != LAYOUT_WORDS:
             raise RuntimeError(
                 f"LayoutData has {lib.oc_layout_words()} words in C, "
@@ -175,6 +181,67 @@ def load():
 def check_launch(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+
+
+@functools.lru_cache(maxsize=64)
+def leaf_shapes(fields: tuple, height: int, width: int, batch: int) -> tuple:
+    """The shapes of a 2-player state's `fields` leaves on a height x width
+    grid, batch last."""
+    lead = {"pos": (2, 2), "orient": (2,), "held": (2,), "held_soup": (2, 3),
+            "obj": (height, width), "soup_ing": (height, width, 3),
+            "soup_tick": (height, width), "obj_seq": (height, width)}
+    return tuple(torch.Size((*lead[f], batch)) for f in fields)
+
+
+def check_leaves(kernel: str, state, fields: tuple, height: int, width: int, device) -> None:
+    """Raise ValueError unless the table kernels (`fused_phi`, `fused_bc`)
+    take `state`: 2 players, and the `fields` they read through raw
+    pointers contiguous int32 batch-last planes of a height x width grid on
+    `device`."""
+    num_players, batch = state.held.shape
+    if num_players != 2:
+        raise ValueError(f"the {kernel} kernel takes 2 players, got {num_players}")
+    for name, shape in zip(fields, leaf_shapes(fields, height, width, batch)):
+        x = getattr(state, name)
+        # one short-circuit test a leaf: the wrappers run every rollout step
+        if isinstance(x, torch.Tensor) and x.dtype is torch.int32 and x.shape == shape and \
+                x.is_contiguous() and x.device == device:
+            continue
+        if not isinstance(x, torch.Tensor) or x.device != device:
+            raise ValueError(f"state.{name} must be a tensor on {device}")
+        raise ValueError(f"state.{name}: want contiguous int32 {tuple(shape)}, got {x.dtype} "
+                         f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
+
+
+def pool_index(kernel: str, pool_idx, num_entries: int, batch: int, device):
+    """A table kernel's pool index as an int64 tensor on `device`, or None
+    for a single layout's (then the tables must hold one entry). pool_idx
+    (B,) names each lane's entry; one given on the host is checked against
+    `num_entries` (on the card a lane whose index names no entry reads NaN)."""
+    if pool_idx is None:
+        if num_entries != 1:
+            raise ValueError(f"a pool's {kernel} kernel needs pool_idx")
+        return None
+    if not (torch.is_tensor(pool_idx) and pool_idx.is_cuda):
+        host = np.asarray(pool_idx)
+        if host.size and (host.min() < 0 or host.max() >= num_entries):
+            raise ValueError(f"pool_idx names entries {host.min()}..{host.max()} of "
+                             f"{num_entries}")
+    pool_idx = torch.as_tensor(pool_idx, device=device).long().contiguous()
+    if pool_idx.shape != (batch,):
+        raise ValueError(f"pool_idx must be ({batch},), got {tuple(pool_idx.shape)}")
+    return pool_idx
+
+
+def launch_on(device, name: str, entry, *args) -> None:
+    """`entry(*args, stream)`, a kernel's C entry, on `device` (made current
+    only where it is not) and its current stream as the raw handle: the
+    context manager and a `torch.cuda.Stream` object each cost microseconds
+    of host time a call. Raises RuntimeError if the launch failed."""
+    with contextlib.nullcontext() if device.index == torch.cuda.current_device() else \
+            torch.cuda.device(device):
+        err = entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    check_launch(err, name)
 
 
 def pack_cell_words(obj, soup_ing, soup_tick, obj_seq, num_cells: int) -> torch.Tensor:

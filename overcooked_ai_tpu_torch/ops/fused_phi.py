@@ -19,13 +19,13 @@ from the layout passed with the state.
 `launch_kernel` on a CUDA state and the plain version on any other. On the
 card the kernel matches the plain version bit for bit (`chip_smoke.py`
 phase 14). It takes 2 players and 1 to MAX_POTS pots; beyond them a CUDA
-state raises ValueError, with no fallback to the plain version.
+state raises ValueError, with no fallback to the plain version. The state
+and pool index checks and the launch's preamble are `_build`'s, shared
+with `ops/fused_bc`.
 """
 
 from __future__ import annotations
 
-import contextlib
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -38,7 +38,6 @@ from overcooked_ai_tpu_torch.ops import _build
 launches = 0  # kernel launches since the caller last set it to 0
 
 MAX_POTS = 8  # every shipped layout has 1 or 2; partial_order has 3**K rows
-NUM_PLAYERS = 2
 HEAD_FIELDS = ("gamma", "steady_state_value", "max_delivery_steps", "max_pickup_steps",
                "pot_onion_steps", "pot_tomato_steps", "onion_value", "tomato_value")
 TABLE_FIELDS = ("opt_no", "opt_nt", "opt_disc_value")  # then delivery_value, time_table
@@ -140,61 +139,29 @@ def pack(entries, device) -> PhiTables:
                      words.shape[1], K, H, W)
 
 
-@functools.lru_cache(maxsize=64)
-def _leaf_shapes(height: int, width: int, batch: int) -> tuple:
-    """The shapes of the READ_FIELDS leaves of a 2-player state."""
-    b = batch
-    return ((2, 2, b), (2, b), (2, b), (2, 3, b), (height, width, b), (height, width, 3, b),
-            (height, width, b))
-
-
 def check_inputs(state, num_pots: int, height: int, width: int, device) -> None:
     """Raise ValueError unless the kernel takes `state`: 2 players, 1 to
     MAX_POTS pots, and the leaves it reads contiguous int32 batch-last
     planes of a height x width grid on `device`."""
     if not 1 <= num_pots <= MAX_POTS:
         raise ValueError(f"the phi kernel takes 1 to MAX_POTS = {MAX_POTS} pots, got {num_pots}")
-    num_players, batch = state.held.shape
-    if num_players != NUM_PLAYERS:
-        raise ValueError(f"the phi kernel takes {NUM_PLAYERS} players, got {num_players}")
-    for name, shape in zip(READ_FIELDS, _leaf_shapes(height, width, batch)):
-        x = getattr(state, name)
-        if not (torch.is_tensor(x) and x.device == device and x.dtype == torch.int32
-                and x.shape == shape and x.is_contiguous()):
-            if not torch.is_tensor(x) or x.device != device:
-                raise ValueError(f"state.{name} must be a tensor on {device}")
-            raise ValueError(f"state.{name}: want contiguous int32 {shape}, got {x.dtype} "
-                             f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
+    _build.check_leaves("phi", state, READ_FIELDS, height, width, device)
 
 
 def launch_kernel(tables: PhiTables, state, pool_idx=None) -> torch.Tensor:
     """The kernel alone, on CUDA tensors: phi (B,) float32. pool_idx (B,)
-    names each lane's entry (a lane whose index names no entry reads NaN);
-    None for a single layout's."""
+    names each lane's entry (`_build.pool_index`); None for a single
+    layout's."""
     global launches
     dev = state.obj.device
     check_inputs(state, tables.num_pots, tables.height, tables.width, dev)
     batch = state.obj.shape[-1]
-    idx_ptr = None
-    if pool_idx is not None:
-        pool_idx = torch.as_tensor(pool_idx, device=dev).long().contiguous()
-        if pool_idx.shape != (batch,):
-            raise ValueError(f"pool_idx must be ({batch},), got {tuple(pool_idx.shape)}")
-        idx_ptr = pool_idx.data_ptr()
-    elif tables.num_entries != 1:
-        raise ValueError("a pool's phi needs pool_idx")
+    pool_idx = _build.pool_index("phi", pool_idx, tables.num_entries, batch, dev)
     out = torch.empty((batch,), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    # on the state's card, made current only where it is not, and its
-    # current stream as the raw handle: the context manager and a
-    # `torch.cuda.Stream` object each cost microseconds of host time a call
-    with contextlib.nullcontext() if dev.index == torch.cuda.current_device() else \
-            torch.cuda.device(dev):
-        err = lib.oc_fused_phi(
-            tables.words.data_ptr(), tables.entry_words, tables.num_entries, idx_ptr,
-            tables.num_pots, tables.height, tables.width, batch,
-            *(getattr(state, name).data_ptr() for name in READ_FIELDS), out.data_ptr(),
-            torch._C._cuda_getCurrentRawStream(dev.index))
-    _build.check_launch(err, "fused_phi")
+    _build.launch_on(
+        dev, "fused_phi", _build.load().oc_fused_phi, tables.words.data_ptr(),
+        tables.entry_words, tables.num_entries, None if pool_idx is None else pool_idx.data_ptr(),
+        tables.num_pots, tables.height, tables.width, batch,
+        *(getattr(state, name).data_ptr() for name in READ_FIELDS), out.data_ptr())
     launches += 1
     return out

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from overcooked_ai_tpu_torch.core.featurize import cost_rows, featurize_batch
+from overcooked_ai_tpu_torch.ops import fused_bc
 from overcooked_ai_tpu_torch.training.networks import LSTMCell, lecun_dense
 
 
@@ -286,18 +287,26 @@ def load_bc_model(model_dir):
 
 
 class _BCPolicyBase:
-    """The net and the motion costs, copied to a device at the first call
-    there; pickled without the copies."""
+    """The net and the motion costs, put on a device at the first call
+    there: the BC kernel's tables and weights on a card (`ops/fused_bc`),
+    the net and the cost rows elsewhere; pickled without them. `layouts`
+    are the layouts of `feature_cost`'s entries (one, or a pool's), whose
+    tables the kernel reads."""
 
-    def __init__(self, params: dict, cfg: BCConfig, feature_cost, stochastic: bool):
+    def __init__(self, params: dict, cfg: BCConfig, feature_cost, stochastic: bool, layouts):
         self.params, self.cfg, self.stochastic = params, cfg, stochastic
         self.feature_cost = np.asarray(feature_cost)
+        self.layouts = list(layouts)
         self._on = {}
 
     def on(self, device):
         if device not in self._on:
-            self._on[device] = (bc_net(self.params, self.cfg, device),
-                                cost_rows(self.feature_cost).to(device))
+            if device.type == "cuda":
+                self._on[device] = fused_bc.pack(self.layouts, self.feature_cost, self.params,
+                                                 self.cfg.net_arch, self.cfg.num_actions, device)
+            else:
+                self._on[device] = (bc_net(self.params, self.cfg, device),
+                                    cost_rows(self.feature_cost).to(device))
         return self._on[device]
 
     def __getstate__(self):
@@ -305,8 +314,13 @@ class _BCPolicyBase:
 
     @torch.no_grad()
     def logits(self, layout, state, pool_idx=None) -> torch.Tensor:
-        """(B * P, A) logits, row b * P + p for player p of env b."""
-        net, rows = self.on(state.obj.device)
+        """(B * P, A) logits, row b * P + p for player p of env b: one launch
+        of the BC kernel on a card (which reads the tables of `self.layouts`,
+        not `layout`), `featurize_batch` and the net elsewhere."""
+        dev = state.obj.device
+        if dev.type == "cuda":
+            return fused_bc.launch_kernel(self.on(dev), state, pool_idx)
+        net, rows = self.on(dev)
         feats = featurize_batch(layout, rows, state, pool_idx=pool_idx)  # (B, P, F)
         return net(feats.reshape(-1, feats.shape[-1]))
 
@@ -345,12 +359,12 @@ class BCBatchPolicy(_BCPolicyBase):
 
 def bc_policy_fn(spec, feature_cost, params: dict, cfg: BCConfig, stochastic=True):
     """A BC model as a stateless agent fn (`agents.evaluation.stateless`)."""
-    return BCAgentPolicy(params, cfg, feature_cost, stochastic)
+    return BCAgentPolicy(params, cfg, feature_cost, stochastic, [spec.layout])
 
 
 def bc_policy_batch(spec, feature_cost, params: dict, cfg: BCConfig, stochastic=True):
     """A BC model as the every-seat partner of `make_ppo(bc_policy=...)`."""
-    return BCBatchPolicy(params, cfg, feature_cost, stochastic)
+    return BCBatchPolicy(params, cfg, feature_cost, stochastic, [spec.layout])
 
 
 def bc_policy_batch_pool(specs, feature_costs, params: dict, cfg: BCConfig, stochastic=True):
@@ -358,4 +372,4 @@ def bc_policy_batch_pool(specs, feature_costs, params: dict, cfg: BCConfig, stoc
     that layout's motion costs (`feature_costs`, one table per spec, the
     same grid shape); one shared net, since the features are egocentric."""
     return BCBatchPolicy(params, cfg, np.stack([np.asarray(f) for f in feature_costs]),
-                         stochastic)
+                         stochastic, [s.layout for s in specs])
