@@ -19,7 +19,7 @@ Phases, one line each with its seconds:
   5. the policy path at full width: `collect_rollout` (2048 envs x 400
      steps, PPONet at NetConfig() widths, random weights from a seed) and
      `make_ppo_eval`, counting B1 launches; B1's time per launch at 2048
-     and at 8 envs, and a sweep of its tile (envs and threads a block);
+     and at 8 envs;
   6. env throughput: `rollout_random` at 16384 envs x 4000 steps on B2,
      then B2 held against its plain version at 16384 envs x 450 steps, and
      B2's device time at 16384 x 450 and 16384 x 4000;
@@ -37,8 +37,7 @@ Phases, one line each with its seconds:
  10. pool env throughput: `fused_pool_rollout_random` at 16384 envs x 4000
      steps in one B4 launch, then `fused_pool_rollout_random_tiles` on the
      pool packed once, with each entry's wall outside the kernel; B4's
-     device time at 16384 x 4000; a sweep of the threads a block of B2 and
-     B4 at 16384 x 450;
+     device time at 16384 x 4000;
  11. soups off the pots: B2 and B4 held against their plain versions on
      crafted `cramped_room` states with cooking soups on counters, idle full
      soups on counters under old dynamics, and a cooking soup carried from
@@ -173,6 +172,8 @@ H100_INT32_OPS_PER_S = 67e12 / 4
 # that the parent's and this tree's times divide the same work
 OLD_INT32_OPS_PER_S = 33.5e12
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]  # interact-heavy random play
+BC_PROXY = os.path.join(ROOT, "runs", "r4_bc", "bc_proxy_cramped_room")  # the committed proxy
+BC_SCHEDULE_HALF = ((0, 0.5), (float("inf"), 0.5))  # the partner in half the episodes
 # a pool whose lanes differ in recipe value, shaping rewards, and old
 # dynamics with another cook time (B3 reads each lane's tables)
 MIXED = [{}, {"delivery_reward": 37},
@@ -183,6 +184,21 @@ MIXED = [{}, {"delivery_reward": 37},
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def train_iter_config():
+    """Phase 12's train iteration, the JAX bench.py's shape: 2048 envs x
+    400 steps, minibatch 32768 env steps, 8 epochs (PPOConfig's default)."""
+    from overcooked_ai_tpu_torch.training.ppo import PPOConfig
+
+    return PPOConfig(num_envs=2048, horizon=400, sgd_minibatch_size=32768)
+
+
+def ppo_bc_phi_config():
+    """Phase 14's iteration: phase 12's shape as PPO_BC + phi, the partner
+    with probability 0.5 an episode, phi with the event shaping."""
+    return dataclasses.replace(train_iter_config(), bc_schedule=BC_SCHEDULE_HALF,
+                               use_phi=True, phi_event_mix=True, lr=5e-4)
 
 
 def max_err(got, want) -> int:
@@ -751,7 +767,7 @@ def job_env_rollout():
 
     from overcooked_ai_tpu_torch.core.env import batch_reset, rollout
     from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
-    from overcooked_ai_tpu_torch.ops import fused_train
+    from overcooked_ai_tpu_torch.ops import _build
     from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
 
     dev, B, T, horizon = _card(), 64, 120, 100
@@ -759,12 +775,12 @@ def job_env_rollout():
     net = PPONet(NetConfig(), spec.height, spec.width,
                  generator=torch.Generator().manual_seed(17)).to(dev)
     acts = []
-    fused_train.launches = 0
+    _build.launches.clear()
     with torch.no_grad():
         _, card = rollout(spec.layout, batch_reset(spec.layout, B, dev),
                           torch.Generator(device=dev).manual_seed(17), T,
                           ppo_policy(net, layout_on(spec.layout, dev), horizon, acts), horizon)
-    launches = fused_train.launches
+    launches = _build.launches["oc_fused_train_step"]
     replay = iter([a.cpu() for a in acts])
     _, cpu = rollout(spec.layout, batch_reset(spec.layout, B, "cpu"), None, T,
                      lambda *_: next(replay), horizon)
@@ -783,14 +799,15 @@ def job_cert(old_dynamics):
     B2 in one launch on every one (the final state's sha256 and the sparse
     total); the unsupported ones refused."""
     from overcooked_ai_tpu_torch.cli import certify_layouts
-    from overcooked_ai_tpu_torch.ops import fused_rollout, fused_train
+    from overcooked_ai_tpu_torch.ops import _build
 
-    fused_train.launches = fused_rollout.launches = 0
+    _build.launches.clear()
     try:
         counts = certify_layouts.check_all(old_dynamics, _card(), log=lambda _: None)
     except SystemExit as e:
         return {"err": 1, "msg": str(e)}
-    return {"err": 0, **counts, "b1": fused_train.launches, "b2": fused_rollout.launches}
+    return {"err": 0, **counts, "b1": _build.launches["oc_fused_train_step"],
+            "b2": _build.launches["oc_fused_rollout"]}
 
 
 BC_STEPS = 400  # steps of 14f's rollouts
@@ -842,17 +859,14 @@ def job_bc(kind):
     from overcooked_ai_tpu_torch.core.layout_generator import LayoutGenerator
     from overcooked_ai_tpu_torch.core.potential import make_potential_fn
     from overcooked_ai_tpu_torch.core.state import to_torch
-    from overcooked_ai_tpu_torch.ops import fused_bc
+    from overcooked_ai_tpu_torch.ops import _build
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
     from overcooked_ai_tpu_torch.training import bc
     from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
     from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout
     from tests.torch_states import crafted_states
-
-    import bench_torch
-
     dev, B = _card(), 2048
-    params, cfg = bc.load_bc_model(bench_torch.BC_PROXY)
+    params, cfg = bc.load_bc_model(BC_PROXY)
     net_bc = bc.bc_net(params, cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(20)
     worst, launches = {}, {}
@@ -864,12 +878,12 @@ def job_bc(kind):
             held = _bc_held(worst, partner, net_bc, cost_rows(fc).to(dev), "rollout")
             net = PPONet(NetConfig(), spec.height, spec.width,
                          generator=torch.Generator().manual_seed(20)).to(dev)
-            fused_bc.launches = 0
+            _build.launches.clear()
             collect_rollout(spec, net, PPOConfig(num_envs=B, horizon=BC_STEPS, use_phi=True,
                                                  phi_event_mix=True), gen, dev,
                             potential_fn=make_potential_fn(spec, fc), bc_policy=held,
                             bc_factor=0.5)
-            launches["rollout"] = fused_bc.launches
+            launches["rollout"] = _build.launches["oc_fused_bc"]
         elif kind == "pool":
             _, specs64 = make_pool(64)
             fcs = [build_motion_tables(s.layout.terrain).feature_cost for s in specs64]
@@ -877,10 +891,10 @@ def job_bc(kind):
             held = _bc_held(worst, partner, net_bc, cost_rows(np.stack(fcs)).to(dev), "pool")
             net = PPONet(NetConfig(), specs64[0].height, specs64[0].width,
                          generator=torch.Generator().manual_seed(21)).to(dev)
-            fused_bc.launches = 0
+            _build.launches.clear()
             collect_rollout(specs64, net, PPOConfig(num_envs=B, horizon=BC_STEPS), gen, dev,
                             bc_policy=held, bc_factor=0.5)
-            launches["pool"] = fused_bc.launches
+            launches["pool"] = _build.launches["oc_fused_bc"]
         else:
             many, seed = [], 0  # generated layouts of 3-7 pots, as 14e's
             while len(many) < 5 and seed < 200:
@@ -1093,7 +1107,7 @@ def phi_kernel_check(dev, spec, partner, specs64, steps=400, B=2048):
     from overcooked_ai_tpu_torch.core.layout import from_layout_name, layout_on
     from overcooked_ai_tpu_torch.core.layout_generator import LayoutGenerator
     from overcooked_ai_tpu_torch.core.state import to_torch
-    from overcooked_ai_tpu_torch.ops import fused_phi, fused_train
+    from overcooked_ai_tpu_torch.ops import _build, fused_train
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
     from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
     from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout
@@ -1112,12 +1126,12 @@ def phi_kernel_check(dev, spec, partner, specs64, steps=400, B=2048):
     checked = _phi_held(worst, phi_fn, lambda lay, st: pot.potential(lay, ptab, rows, st))
     torch.manual_seed(18)
     net = PPONet(NetConfig(), spec.height, spec.width).to(dev)
-    fused_phi.launches = 0
+    _build.launches.clear()
     collect_rollout(spec, net, PPOConfig(num_envs=B, horizon=steps, use_phi=True,
                                          phi_event_mix=True), gen, dev, potential_fn=checked,
                     bc_policy=partner, bc_factor=0.5)
-    out["rollout"] = {"launches": fused_phi.launches, "err": worst["err"].item(),
-                      "ulp": worst["ulp"].item()}
+    out["rollout"] = {"launches": _build.launches["oc_fused_phi"],
+                      "err": worst["err"].item(), "ulp": worst["ulp"].item()}
 
     # one rollout on the 64-layout pool, each lane on its entry's tables
     fcs = [build_motion_tables(s.layout.terrain).feature_cost for s in specs64]
@@ -1128,11 +1142,11 @@ def phi_kernel_check(dev, spec, partner, specs64, steps=400, B=2048):
     checked = _phi_held(worst, pot.make_potential_fn_pool(specs64),
                         lambda idx, lanes, st: pot.potential(lanes, ptab64, rows64, st, idx))
     net64 = PPONet(NetConfig(), specs64[0].height, specs64[0].width).to(dev)
-    fused_phi.launches = 0
+    _build.launches.clear()
     collect_rollout(specs64, net64, PPOConfig(num_envs=B, horizon=steps, use_phi=True), gen,
                     dev, potential_fn=checked)
-    out["pool_rollout"] = {"launches": fused_phi.launches, "err": worst["err"].item(),
-                           "ulp": worst["ulp"].item()}
+    out["pool_rollout"] = {"launches": _build.launches["oc_fused_phi"],
+                           "err": worst["err"].item(), "ulp": worst["ulp"].item()}
 
     # random play on generated layouts of 3-7 pots, phi every 5th step
     many, seed = {}, 0
@@ -1239,11 +1253,8 @@ def bc_kernel_check(dev, spec, jobs, B=2048):
     from overcooked_ai_tpu_torch.ops import fused_bc
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
     from overcooked_ai_tpu_torch.training import bc
-
-    import bench_torch
-
     t0 = time.perf_counter()
-    params, cfg = bc.load_bc_model(bench_torch.BC_PROXY)
+    params, cfg = bc.load_bc_model(BC_PROXY)
     fc = build_motion_tables(spec.layout.terrain).feature_cost
     partner = bc.bc_policy_batch(spec, fc, params, cfg)
     net, rows = bc.bc_net(params, cfg, dev), cost_rows(fc).to(dev)
@@ -1301,8 +1312,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import numpy as np
-
-    import bench_torch
     from overcooked_ai_tpu_torch.agents import agents as agents_mod
     from overcooked_ai_tpu_torch.agents.evaluation import (
         check_trajectories,
@@ -1329,14 +1338,7 @@ def main() -> int:
     from overcooked_ai_tpu_torch.core.state import State
     from overcooked_ai_tpu_torch.demo.game import DemoGame, npc_from_kind
     from overcooked_ai_tpu_torch.interop.single_env import OvercookedEnv
-    from overcooked_ai_tpu_torch.ops import (
-        _build,
-        fused_bc,
-        fused_phi,
-        fused_pool,
-        fused_rollout,
-        fused_train,
-    )
+    from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
     from overcooked_ai_tpu_torch.parallel import dryrun
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
     from overcooked_ai_tpu_torch.training.bc import (
@@ -1479,11 +1481,11 @@ def main() -> int:
     cfg = PPOConfig(num_envs=2048, horizon=400)
     collect_rollout(spec, net, PPOConfig(num_envs=2048, horizon=4), gen, dev)  # warm-up
     evaluate = make_ppo_eval(spec, num_games=8, horizon=400, device=dev)
-    fused_train.launches = fused_rollout.launches = 0
+    _build.launches.clear()
     ro, t_collect = synced(lambda: collect_rollout(spec, net, cfg, gen, dev))
-    b1_collect = fused_train.launches
+    b1_collect = _build.launches["oc_fused_train_step"]
     mean_return, t_eval = synced(lambda: evaluate(net, gen))
-    b1_launches, b2_main5 = fused_train.launches, fused_rollout.launches
+    b1_launches, b2_main5 = (_build.launches[k] for k in _build.ENV_ENTRIES[:2])
     if (b1_collect, b1_launches) != (cfg.horizon, cfg.horizon + 400):
         raise SystemExit(f"B1 launched {b1_collect} times in the rollout and "
                          f"{b1_launches - b1_collect} in the eval, want 400 each")
@@ -1592,34 +1594,16 @@ def main() -> int:
         f"{b1_time[1024][2]:.6f} ms; "
         f"tile {fused_train.tile_plan(HW, 2048)}")
 
-    # the tile sweep at the main path's 2048 envs: ms per launch for each
-    # envs x threads a block (128 threads a block were the slowest at every
-    # tile on the H100, and at the eval's 8 envs every tile took the same
-    # time within 2%, PERF.md)
-    sweep = {}
-    for B in (2048,):
-        state = batch_reset(lay, B, dev)
-        act = torch.randint(0, 6, (2, B), dtype=torch.int32, device=dev, generator=gen)
-        for envs in (8, 16, 32):
-            for threads in (256, 512):
-                plan = fused_train.tile_plan(HW, B, envs=envs, threads=threads)
-                n = 30
-                _, sweep[f"B{B}_E{envs}_T{threads}"] = kernel_ms(
-                    "train_step_kernel<false>", lambda: [
-                        fused_train.launch_kernel(lay, state, act, 400, 400, plan)
-                        for _ in range(n)])
-    log("[5 B1 tile sweep] ms/launch " + json.dumps({k: round(v, 5) for k, v in sweep.items()}))
-
     # the train path's env throughput: train_rollout_random (one B1 launch a
     # step, uniform-random actions, totals on the card) at the JAX bench.py's
     # BATCH x NUM_STEPS_TRAIN, after a short warm-up
     B, T = 16384, 4000
     state = batch_reset(lay, B, dev)
     fused_train.train_rollout_random(lay, state, 20, generator=gen)
-    fused_train.launches = 0
+    _build.launches.clear()
     (final, totals), t_trr = synced(lambda: fused_train.train_rollout_random(
         lay, state, T, generator=gen))
-    trr_launches = fused_train.launches
+    trr_launches = _build.launches["oc_fused_train_step"]
     totals = {k: v.tolist() for k, v in totals.items()}
     if trr_launches != T or not (totals["sparse"] > 0 and totals["obs_checksum"] > 0
                                  and bool(final.t.eq(T % 400).all())):
@@ -1635,13 +1619,12 @@ def main() -> int:
     # minute. The kernel's device time at both lengths
     B, T, T_CMP = 16384, 4000, 450
     state = batch_reset(lay, B, dev)
-    lay_b2, state_b2 = lay, state
     # a short warm-up: the main process launches B2 here first (its parity
     # cases run in the jobs), and a first launch carries one-time costs
     rollout_random(lay, state, 1, 8, horizon=400)
-    fused_train.launches = fused_rollout.launches = 0
+    _build.launches.clear()
     (final, total), t_b2 = synced(lambda: rollout_random(lay, state, 1, T, horizon=400))
-    b2_launches, b1_main6 = fused_rollout.launches, fused_train.launches
+    b1_main6, b2_launches = (_build.launches[k] for k in _build.ENV_ENTRIES[:2])
     if b2_launches != 1:
         raise SystemExit(f"rollout_random launched B2 {b2_launches} times, want 1")
     if not (bool(final.t.eq(T % 400).all()) and int(total) > 0):  # ten whole episodes
@@ -1676,13 +1659,10 @@ def main() -> int:
 
     # ---- the layout-pool path (B3, B4): pools as the JAX bench.py makes them
     def reset_counts():  # and the phi and BC kernels', read where they run (phase 14)
-        fused_train.launches = fused_rollout.launches = fused_phi.launches = 0
-        fused_bc.launches = 0
-        fused_pool.train_launches = fused_pool.rollout_launches = 0
+        _build.launches.clear()
 
     def counts():
-        return (fused_train.launches, fused_rollout.launches, fused_pool.train_launches,
-                fused_pool.rollout_launches)
+        return tuple(_build.launches[k] for k in _build.ENV_ENTRIES)
 
     spec_pool, specs64 = make_pool(64)  # bench.py _make_pool: 64 layouts of 5x4
 
@@ -1825,17 +1805,6 @@ def main() -> int:
         f"{b4_bound_ms:.4f} ms ({b4_ops} ops; old count {b4_old_bounds[T_CMP]:.4f}), "
         f"max_abs_err={b4_err}")
 
-    # the threads a block of B2 and B4, at the main path's 16384 envs over
-    # 450 steps (ROLLOUT_THREADS is the constant)
-    rollout_sweep = {}
-    for threads in (32, 64, 128, 256):
-        _, rollout_sweep[f"B2_T{threads}"] = card_ms(lambda: fused_rollout.launch_kernel(
-            lay_b2, state_b2, 1, None, T_CMP, 400, threads))
-        _, rollout_sweep[f"B4_T{threads}"] = card_ms(lambda: fused_pool.launch_rollout_kernel(
-            pool_b4, state_b4, 1, None, T_CMP, 400, threads))
-    log("[10 rollout sweep] ms at 16384x450 by threads a block "
-        + json.dumps({k: round(v, 5) for k, v in rollout_sweep.items()}))
-
     # ---- 11. soups off the pots, kernel vs plain: crafted `cramped_room`
     # states whose live cells are not only the pots, on B2 and on B4 (the
     # parity jobs)
@@ -1854,7 +1823,7 @@ def main() -> int:
     # passed in (B3); a small iteration on the card against the CPU learner;
     # the two training CLIs in process, writing to a temporary directory
     t0 = time.perf_counter()
-    cfg_it = bench_torch.train_iter_config()
+    cfg_it = train_iter_config()
     init_fn, train_it = make_ppo(spec, cfg_it, device=dev)
     ts = init_fn(0)
     # warm-up at the timed iteration's minibatch shape (a first iteration takes
@@ -2170,7 +2139,7 @@ def main() -> int:
     t14 = time.perf_counter()
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
-    proxy = bench_torch.BC_PROXY
+    proxy = BC_PROXY
     bc_params, bc_cfg = load_bc_model(proxy)  # the JAX package's msgpack, read by the port
     feat_err, phi_err, logit_err, logit_max, n_states = 0.0, 0.0, 0.0, 0.0, 0
     # torch.argmin keeps the first of equal minima on the card too
@@ -2224,16 +2193,16 @@ def main() -> int:
     fc_cr = build_motion_tables(spec.layout.terrain).feature_cost
     partner = bc_policy_batch(spec, fc_cr, bc_params, bc_cfg)
     phi_cr = make_potential_fn(spec, fc_cr)
-    half = bench_torch.BC_SCHEDULE_HALF
-    cfg_bc = bench_torch.ppo_bc_phi_config()
+    half = BC_SCHEDULE_HALF
+    cfg_bc = ppo_bc_phi_config()
     collect_rollout(spec, net, PPOConfig(num_envs=2048, horizon=4, use_phi=True), gen, dev,
                     potential_fn=phi_cr, bc_policy=partner, bc_factor=0.5)  # warm-up
     init_bc, train_bc = make_ppo(spec, cfg_bc, phi_cr, partner, device=dev)
     ts_bc = init_bc(0)
     reset_counts()
     (ts_bc, m_bc), t_bc = synced(lambda: timed_iteration(train_bc, ts_bc))
-    bc_counts, phi_bc_launches, bc_kernel_launches = counts(), fused_phi.launches, \
-        fused_bc.launches
+    bc_counts, phi_bc_launches, bc_kernel_launches = counts(), _build.launches["oc_fused_phi"], \
+        _build.launches["oc_fused_bc"]
     bc_split = {"rollout": marks["start"].elapsed_time(marks["rollout"]),
                 "gae_std": marks["rollout"].elapsed_time(marks["advantages"]),
                 "sgd": marks["advantages"].elapsed_time(marks["end"])}
@@ -2287,8 +2256,8 @@ def main() -> int:
         device=dev)
     reset_counts()
     (_, m_pbc), t_pbc = synced(lambda: train_pbc(init_pbc(0)))
-    pbc_counts, phi_pbc_launches, bc_pool_launches = counts(), fused_phi.launches, \
-        fused_bc.launches
+    pbc_counts, phi_pbc_launches, bc_pool_launches = counts(), _build.launches["oc_fused_phi"], \
+        _build.launches["oc_fused_bc"]
     b3_bc_launches = pbc_counts[2]
     if pbc_counts != (0, 0, 200, 0) or phi_pbc_launches != 201 or bc_pool_launches != 200 or \
             not all(np.isfinite(v.item()) for v in m_pbc):
@@ -2854,8 +2823,7 @@ def main() -> int:
          "single_env_bound_ms": b1_one_bound_ms,
          "eval_ms": b1_time[8][0],
          "eval_plain_ms": b1_time[8][1], "eval_bound_ms": b1_time[8][2],
-         "tile_envs": fused_train.TILE_ENVS, "block_threads": fused_train.BLOCK_THREADS,
-         "tile_sweep_ms": sweep},
+         "tile_envs": fused_train.TILE_ENVS, "block_threads": fused_train.BLOCK_THREADS},
         {"name": "fused_rollout (B2)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "overcooked_ai_tpu/ops/fused_rollout.py:693", "launches": b2_launches,
@@ -2865,7 +2833,6 @@ def main() -> int:
          "main_ms": b2_main_ms,
          "main_bound_ms": b2_main_bound_ms, "old_count_bound_ms": b2_old_bounds[T_CMP],
          "old_count_main_bound_ms": b2_old_bounds[T], "threads": fused_rollout.ROLLOUT_THREADS,
-         "threads_sweep_ms": {k: v for k, v in rollout_sweep.items() if k.startswith("B2")},
          "registers_spills": {k: v for k, v in rollout_regs.items() if ",0," in k}},
         {"name": "fused_pool_train_step (B3)", "route": "cuda",
          "source": "overcooked_ai_tpu_torch/csrc/fused_pool_train.cu",
@@ -2882,7 +2849,6 @@ def main() -> int:
          "steps": T_CMP, "main_steps": T, "main_ms": b4_main_ms,
          "main_bound_ms": b4_main_bound_ms, "old_count_bound_ms": b4_old_bounds[T_CMP],
          "old_count_main_bound_ms": b4_old_bounds[T], "threads": fused_rollout.ROLLOUT_THREADS,
-         "threads_sweep_ms": {k: v for k, v in rollout_sweep.items() if k.startswith("B4")},
          "registers_spills": {k: v for k, v in rollout_regs.items() if ",1," in k},
          "entry_outside_ms": b4_outside_ms},
         {"name": "fused_phi", "route": "cuda",

@@ -189,7 +189,7 @@ def main(argv=None):
     from overcooked_ai_tpu_torch.agents.loading import build_agent
     from overcooked_ai_tpu_torch.cli.train_ppo import check_device
     from overcooked_ai_tpu_torch.core.layout import from_layout_name
-    from overcooked_ai_tpu_torch.ops import fused_train
+    from overcooked_ai_tpu_torch.ops import _build
     from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
 
     device = check_device(args.device)
@@ -210,7 +210,7 @@ def main(argv=None):
         lay_res = {}
         for cell in cells:
             a, b = cell.split("+")
-            fused_train.launches = 0
+            b1_before = _build.launches["oc_fused_train_step"]
             t0 = time.perf_counter()
             traj = run_agent_pair(spec, [agents[a], agents[b]], num_games=args.games,
                                   horizon=args.horizon, seed=0, greedy_carry=True,
@@ -219,7 +219,7 @@ def main(argv=None):
             lay_res[cell] = {"mean": float(per_game.mean()), "std": float(per_game.std()),
                              "games": int(per_game.shape[0]),
                              "wall_s": time.perf_counter() - t0,
-                             "b1_launches": fused_train.launches}
+                             "b1_launches": _build.launches["oc_fused_train_step"] - b1_before}
             print(f"{layout_name} {cell}: {lay_res[cell]['mean']:.1f} +- "
                   f"{lay_res[cell]['std']:.1f} ({lay_res[cell]['wall_s']:.3f}s, B1 launches "
                   f"{lay_res[cell]['b1_launches']})", flush=True)

@@ -16,12 +16,17 @@ rebuilding and an edited source rebuilds. Nothing here runs at import.
 
 This module also owns the Python side of the C interface: the `LayoutData`
 word block of `csrc/overcooked_step.cuh` (`layout_words`), its 52-word
-`RecipeTables` part (`table_words`, also per lane) and the `StateArrays`
-pointer struct (`state_arrays`).
+`RecipeTables` part (`table_words`, also per lane), the `StateArrays`
+pointer struct (`state_arrays`), and the one path by which the six kernels
+(B1-B4, phi, BC) are launched: the guards that refuse a state or actions
+the kernels cannot read through raw pointers (`check_state`,
+`check_actions`), the launch itself (`launch`) and its count by C entry
+(`launches`).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -58,7 +63,12 @@ TABLE_FIELDS = ("old_dynamics", "placement_in_pot_rew", "dish_pickup_rew", "soup
 TABLE_WORDS = 4 + 3 * 16
 LAYOUT_WORDS = HEADER_WORDS + TABLE_WORDS + 2 * MAX_HW + 8 * MAX_P
 
-_lib = None  # the loaded library, once per process
+# kernel launches by C entry (`oc_fused_train_step`, ...) since the caller
+# last cleared it
+launches: collections.Counter = collections.Counter()
+# the C entries of the env kernels B1, B2, B3 and B4, in that order
+ENV_ENTRIES = ("oc_fused_train_step", "oc_fused_rollout", "oc_fused_pool_train_step",
+               "oc_fused_pool_rollout")
 # id(layout) -> (layout, its LayoutData words); holding the layout keeps
 # its id from being reused while the entry lives
 _words_cache: dict[int, tuple[Layout, np.ndarray]] = {}
@@ -143,65 +153,63 @@ class StateArrays(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in State._fields]
 
 
+@functools.cache
 def load():
-    """The kernel library, built on first use; C signatures declared."""
-    global _lib
-    if _lib is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.oc_layout_words.argtypes = []
-        lib.oc_layout_words.restype = i
-        lib.oc_fused_rollout.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-        lib.oc_fused_rollout.restype = i
-        lib.oc_fused_train_step.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-        lib.oc_fused_train_step.restype = i
-        lib.oc_fused_pool_rollout.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.oc_fused_pool_rollout.restype = i
-        lib.oc_fused_pool_train_step.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                                 i, i, i, i, p]
-        lib.oc_fused_pool_train_step.restype = i
-        lib.oc_phi_entry_words.argtypes = [i, i]
-        lib.oc_phi_entry_words.restype = i
-        lib.oc_fused_phi.argtypes = [p, i, i, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
-        lib.oc_fused_phi.restype = i
-        lib.oc_bc_entry_words.argtypes = [i]
-        lib.oc_bc_entry_words.restype = i
-        lib.oc_fused_bc.argtypes = [p, i, i, p, i, i, i, p, i, p, *[p] * 8, p, p, p]
-        lib.oc_fused_bc.restype = i
-        if lib.oc_layout_words() != LAYOUT_WORDS:
-            raise RuntimeError(
-                f"LayoutData has {lib.oc_layout_words()} words in C, "
-                f"{LAYOUT_WORDS} in Python"
-            )
-        _lib = lib
-    return _lib
-
-
-def check_launch(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+    """The kernel library, built on first use and loaded once per process;
+    C signatures declared."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.oc_layout_words.argtypes = []
+    lib.oc_layout_words.restype = i
+    lib.oc_fused_rollout.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.oc_fused_rollout.restype = i
+    lib.oc_fused_train_step.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.oc_fused_train_step.restype = i
+    lib.oc_fused_pool_rollout.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.oc_fused_pool_rollout.restype = i
+    lib.oc_fused_pool_train_step.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                             i, i, i, i, p]
+    lib.oc_fused_pool_train_step.restype = i
+    lib.oc_phi_entry_words.argtypes = [i, i]
+    lib.oc_phi_entry_words.restype = i
+    lib.oc_fused_phi.argtypes = [p, i, i, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
+    lib.oc_fused_phi.restype = i
+    lib.oc_bc_entry_words.argtypes = [i]
+    lib.oc_bc_entry_words.restype = i
+    lib.oc_fused_bc.argtypes = [p, i, i, p, i, i, i, p, i, p, *[p] * 8, p, p, p]
+    lib.oc_fused_bc.restype = i
+    if lib.oc_layout_words() != LAYOUT_WORDS:
+        raise RuntimeError(
+            f"LayoutData has {lib.oc_layout_words()} words in C, "
+            f"{LAYOUT_WORDS} in Python"
+        )
+    return lib
 
 
 @functools.lru_cache(maxsize=64)
-def leaf_shapes(fields: tuple, height: int, width: int, batch: int) -> tuple:
-    """The shapes of a 2-player state's `fields` leaves on a height x width
-    grid, batch last."""
-    lead = {"pos": (2, 2), "orient": (2,), "held": (2,), "held_soup": (2, 3),
-            "obj": (height, width), "soup_ing": (height, width, 3),
-            "soup_tick": (height, width), "obj_seq": (height, width)}
+def leaf_shapes(fields: tuple, num_players: int, height: int, width: int, batch: int) -> tuple:
+    """The shapes of a state's `fields` leaves, `num_players` players on a
+    height x width grid, batch last."""
+    P, H, W = num_players, height, width
+    lead = {"pos": (P, 2), "orient": (P,), "held": (P,), "held_soup": (P, 3),
+            "held_soup_tick": (P,), "obj": (H, W), "soup_ing": (H, W, 3), "soup_tick": (H, W),
+            "obj_seq": (H, W), "t": ()}
     return tuple(torch.Size((*lead[f], batch)) for f in fields)
 
 
-def check_leaves(kernel: str, state, fields: tuple, height: int, width: int, device) -> None:
-    """Raise ValueError unless the table kernels (`fused_phi`, `fused_bc`)
-    take `state`: 2 players, and the `fields` they read through raw
-    pointers contiguous int32 batch-last planes of a height x width grid on
-    `device`."""
-    num_players, batch = state.held.shape
-    if num_players != 2:
-        raise ValueError(f"the {kernel} kernel takes 2 players, got {num_players}")
-    for name, shape in zip(fields, leaf_shapes(fields, height, width, batch)):
+def check_state(kernel: str, state, fields: tuple, num_players: int, height: int, width: int,
+                device) -> None:
+    """Raise ValueError unless the `kernel` kernel takes `state`:
+    `num_players` players, at least one env, and the `fields` it reads
+    through raw pointers contiguous int32 batch-last leaves of a height x
+    width grid on `device`."""
+    players, batch = state.held.shape
+    if players != num_players:
+        raise ValueError(f"the {kernel} kernel takes {num_players} players, got {players}")
+    if batch < 1:
+        raise ValueError(f"the {kernel} kernel needs at least one env")
+    for name, shape in zip(fields, leaf_shapes(fields, num_players, height, width, batch)):
         x = getattr(state, name)
         # one short-circuit test a leaf: the wrappers run every rollout step
         if isinstance(x, torch.Tensor) and x.dtype is torch.int32 and x.shape == shape and \
@@ -211,6 +219,15 @@ def check_leaves(kernel: str, state, fields: tuple, height: int, width: int, dev
             raise ValueError(f"state.{name} must be a tensor on {device}")
         raise ValueError(f"state.{name}: want contiguous int32 {tuple(shape)}, got {x.dtype} "
                          f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
+
+
+def check_actions(actions, shape: tuple, device) -> None:
+    """Raise ValueError unless `actions` is a contiguous int32 tensor of
+    `shape` on `device`."""
+    if not (isinstance(actions, torch.Tensor) and actions.device == device
+            and actions.dtype is torch.int32 and actions.shape == shape
+            and actions.is_contiguous()):
+        raise ValueError(f"actions must be contiguous int32 {shape} on {device}")
 
 
 def pool_index(kernel: str, pool_idx, num_entries: int, batch: int, device):
@@ -233,15 +250,26 @@ def pool_index(kernel: str, pool_idx, num_entries: int, batch: int, device):
     return pool_idx
 
 
-def launch_on(device, name: str, entry, *args) -> None:
-    """`entry(*args, stream)`, a kernel's C entry, on `device` (made current
-    only where it is not) and its current stream as the raw handle: the
-    context manager and a `torch.cuda.Stream` object each cost microseconds
-    of host time a call. Raises RuntimeError if the launch failed."""
+def launch(entry: str, device, *args) -> None:
+    """`entry(*args, stream)`, one of the library's C entries, on `device`
+    (made current only where it is not) and its current stream as the raw
+    handle: the context manager and a `torch.cuda.Stream` object each cost
+    microseconds of host time a call. Counts the launch in
+    `launches[entry]`; raises RuntimeError if it failed."""
+    fn = getattr(load(), entry)
     with contextlib.nullcontext() if device.index == torch.cuda.current_device() else \
             torch.cuda.device(device):
-        err = entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
-    check_launch(err, name)
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"{entry}: kernel launch failed with cudaError {err}")
+    launches[entry] += 1
+
+
+def terrain_cells(terrain: np.ndarray, code: int) -> np.ndarray:
+    """The cells of `terrain` (H, W) holding `code`, as y * W + x, row-major:
+    how the table kernels' word blocks list pots and serve cells."""
+    ys, xs = np.nonzero(terrain == code)
+    return (ys * terrain.shape[1] + xs).astype(np.int64)
 
 
 def pack_cell_words(obj, soup_ing, soup_tick, obj_seq, num_cells: int) -> torch.Tensor:
@@ -326,24 +354,3 @@ def _build_layout_words(layout: Layout) -> np.ndarray:
 
 def state_arrays(state: State) -> StateArrays:
     return StateArrays(*(x.data_ptr() for x in state))
-
-
-def check_state(state: State, layout: Layout, batch: int, device) -> None:
-    """Raise unless `state` is a batch-last int32 contiguous state of
-    `layout` with `batch` envs on `device`."""
-    H, W = layout.terrain.shape[:2]
-    P = layout.start_state.pos.shape[0]
-    want = State(
-        pos=(P, 2, batch), orient=(P, batch), held=(P, batch),
-        held_soup=(P, 3, batch), held_soup_tick=(P, batch), obj=(H, W, batch),
-        soup_ing=(H, W, 3, batch), soup_tick=(H, W, batch), obj_seq=(H, W, batch),
-        t=(batch,),
-    )
-    for name, x, shape in zip(State._fields, state, want):
-        if not torch.is_tensor(x) or x.device != device:
-            raise ValueError(f"state.{name} must be a tensor on {device}")
-        if x.dtype != torch.int32 or tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(
-                f"state.{name}: want contiguous int32 {shape}, got "
-                f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
-            )

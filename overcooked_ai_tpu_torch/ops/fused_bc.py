@@ -22,8 +22,8 @@ version's bit for bit and the logits within float32 rounding of BCNet's
 blocks (set by the net's input width, 56 + 20 a block), and an MLP of 1 to
 MAX_HIDDEN hidden layers and actions each at most MAX_WIDTH wide; beyond
 them it raises ValueError, with no fallback to the plain version. The state
-and pool index checks and the launch's preamble are `_build`'s, shared with
-`ops/fused_phi`.
+and pool index checks, the launch and its count
+(`_build.launches["oc_fused_bc"]`) are `ops/_build`'s.
 """
 
 from __future__ import annotations
@@ -37,10 +37,7 @@ import torch
 from overcooked_ai_tpu_torch.core.constants import TERRAIN_POT
 from overcooked_ai_tpu_torch.core.featurize import cost_rows, get_featurize_shape
 from overcooked_ai_tpu_torch.ops import _build
-from overcooked_ai_tpu_torch.ops.fused_phi import _cells
 from overcooked_ai_tpu_torch.planning.tables import INF_COST
-
-launches = 0  # kernel launches since the caller last set it to 0
 
 NUM_PLAYERS = 2
 MAX_POTS = 4  # pot blocks of the features; every committed proxy has 2
@@ -94,7 +91,7 @@ def pack_entry(layout, feature_cost) -> np.ndarray:
         raise ValueError(f"motion costs of {rows.shape[1]} cells for a layout of {num_cells}")
     if (rows[rows < INF_COST] >= MAX_COST).any():
         raise ValueError(f"the BC kernel takes motion costs below {MAX_COST}")
-    pots = _cells(terrain, TERRAIN_POT)
+    pots = _build.terrain_cells(terrain, TERRAIN_POT)
     words = np.zeros(lay.words, np.int64)
     words[lay.terrain:lay.terrain + num_cells] = terrain.reshape(-1)
     words[lay.time:lay.time + 16] = np.asarray(layout.time_table).reshape(-1)
@@ -166,23 +163,21 @@ def launch_kernel(tables: BCTables, state, pool_idx=None, with_features: bool = 
     player p of env b, and with `with_features` also the features (B * 2,
     F). pool_idx (B,) names each lane's entry (`_build.pool_index`); None
     for a single layout's."""
-    global launches
     dev = state.obj.device
     if tables.words.device != dev or tables.weights.device != dev:
         raise ValueError(f"the BC kernel's tables are on {tables.words.device}, the state on "
                          f"{dev}")
-    _build.check_leaves("BC", state, READ_FIELDS, tables.height, tables.width, dev)
+    _build.check_state("BC", state, READ_FIELDS, NUM_PLAYERS, tables.height, tables.width, dev)
     batch = state.obj.shape[-1]
     pool_idx = _build.pool_index("BC", pool_idx, tables.num_entries, batch, dev)
     rows = NUM_PLAYERS * batch
     logits = torch.empty((rows, tables.widths[-1]), dtype=torch.float32, device=dev)
     feats = torch.empty((rows, tables.widths[0]), dtype=torch.float32, device=dev) \
         if with_features else None
-    _build.launch_on(
-        dev, "fused_bc", _build.load().oc_fused_bc, tables.words.data_ptr(), tables.entry_words,
-        tables.num_entries, None if pool_idx is None else pool_idx.data_ptr(), tables.height,
-        tables.width, batch, tables.weights.data_ptr(), len(tables.widths) - 1, tables.c_widths,
+    _build.launch(
+        "oc_fused_bc", dev, tables.words.data_ptr(), tables.entry_words, tables.num_entries,
+        None if pool_idx is None else pool_idx.data_ptr(), tables.height, tables.width, batch,
+        tables.weights.data_ptr(), len(tables.widths) - 1, tables.c_widths,
         *(getattr(state, name).data_ptr() for name in READ_FIELDS), logits.data_ptr(),
         None if feats is None else feats.data_ptr())
-    launches += 1
     return (logits, feats) if with_features else logits

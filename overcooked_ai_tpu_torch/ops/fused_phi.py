@@ -20,8 +20,8 @@ from the layout passed with the state.
 card the kernel matches the plain version bit for bit (`chip_smoke.py`
 phase 14). It takes 2 players and 1 to MAX_POTS pots; beyond them a CUDA
 state raises ValueError, with no fallback to the plain version. The state
-and pool index checks and the launch's preamble are `_build`'s, shared
-with `ops/fused_bc`.
+and pool index checks, the launch and its count
+(`_build.launches["oc_fused_phi"]`) are `ops/_build`'s.
 """
 
 from __future__ import annotations
@@ -34,8 +34,6 @@ import torch
 from overcooked_ai_tpu_torch.core.constants import TERRAIN_POT, TERRAIN_SERVE
 from overcooked_ai_tpu_torch.core.featurize import cost_rows
 from overcooked_ai_tpu_torch.ops import _build
-
-launches = 0  # kernel launches since the caller last set it to 0
 
 MAX_POTS = 8  # every shipped layout has 1 or 2; partial_order has 3**K rows
 HEAD_FIELDS = ("gamma", "steady_state_value", "max_delivery_steps", "max_pickup_steps",
@@ -79,18 +77,13 @@ class PhiTables(NamedTuple):
     width: int
 
 
-def _cells(terrain: np.ndarray, code: int) -> np.ndarray:
-    ys, xs = np.nonzero(terrain == code)  # row-major
-    return (ys * terrain.shape[1] + xs).astype(np.int64)
-
-
 def pack_entry(ptab, layout, feature_cost) -> np.ndarray:
     """One layout's entry: (entry words,) int32. ptab: the layout's own
     (unstacked) `core.potential.PotentialTables`; layout: its `Layout`; feature_cost (4, H, W, H, W)."""
     terrain = np.asarray(layout.terrain)
     num_cells = terrain.size
     pots = ptab.pot_xy[:, 1].astype(np.int64) * terrain.shape[1] + ptab.pot_xy[:, 0]
-    if not np.array_equal(pots, _cells(terrain, TERRAIN_POT)):
+    if not np.array_equal(pots, _build.terrain_cells(terrain, TERRAIN_POT)):
         raise ValueError("the potential's pots are not the layout's")
     lay = entry_layout(len(pots), num_cells)
     words = np.zeros(lay.words, np.int64)
@@ -108,7 +101,7 @@ def pack_entry(ptab, layout, feature_cost) -> np.ndarray:
     for i, (name, x) in enumerate(tables):
         put(lay.tables + 16 * i, name, x)
     words[lay.pots:lay.pots + len(pots)] = pots
-    serve = _cells(terrain, TERRAIN_SERVE)
+    serve = _build.terrain_cells(terrain, TERRAIN_SERVE)
     words[lay.num_serve] = serve.size
     words[lay.serve:lay.serve + serve.size] = serve
     put(lay.partial, "partial_order", ptab.partial_order)
@@ -145,23 +138,21 @@ def check_inputs(state, num_pots: int, height: int, width: int, device) -> None:
     planes of a height x width grid on `device`."""
     if not 1 <= num_pots <= MAX_POTS:
         raise ValueError(f"the phi kernel takes 1 to MAX_POTS = {MAX_POTS} pots, got {num_pots}")
-    _build.check_leaves("phi", state, READ_FIELDS, height, width, device)
+    _build.check_state("phi", state, READ_FIELDS, 2, height, width, device)
 
 
 def launch_kernel(tables: PhiTables, state, pool_idx=None) -> torch.Tensor:
     """The kernel alone, on CUDA tensors: phi (B,) float32. pool_idx (B,)
     names each lane's entry (`_build.pool_index`); None for a single
     layout's."""
-    global launches
     dev = state.obj.device
     check_inputs(state, tables.num_pots, tables.height, tables.width, dev)
     batch = state.obj.shape[-1]
     pool_idx = _build.pool_index("phi", pool_idx, tables.num_entries, batch, dev)
     out = torch.empty((batch,), dtype=torch.float32, device=dev)
-    _build.launch_on(
-        dev, "fused_phi", _build.load().oc_fused_phi, tables.words.data_ptr(),
-        tables.entry_words, tables.num_entries, None if pool_idx is None else pool_idx.data_ptr(),
-        tables.num_pots, tables.height, tables.width, batch,
-        *(getattr(state, name).data_ptr() for name in READ_FIELDS), out.data_ptr())
-    launches += 1
+    _build.launch(
+        "oc_fused_phi", dev, tables.words.data_ptr(), tables.entry_words, tables.num_entries,
+        None if pool_idx is None else pool_idx.data_ptr(), tables.num_pots, tables.height,
+        tables.width, batch, *(getattr(state, name).data_ptr() for name in READ_FIELDS),
+        out.data_ptr())
     return out

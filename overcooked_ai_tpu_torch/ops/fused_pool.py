@@ -38,7 +38,9 @@ data that `pool_data` did not make for their spec. On a CPU tensor the
 entries run the plain versions, B1's and B2's plain versions on the
 per-lane layout (`core.step` and `core.encoding` read every layout field per
 lane); that is also what the kernels are held against on the card. A tensor
-on any other device raises.
+on any other device raises. The launches, their guards and their counts
+(`_build.launches["oc_fused_pool_train_step"]`, `["oc_fused_pool_rollout"]`)
+are `ops/_build`'s.
 """
 
 from __future__ import annotations
@@ -49,21 +51,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS
 from overcooked_ai_tpu_torch.core.layout import Layout, layout_on, per_lane
 from overcooked_ai_tpu_torch.core.state import State
 from overcooked_ai_tpu_torch.ops import _build
-from overcooked_ai_tpu_torch.ops.fused_rollout import _M32, ROLLOUT_THREADS, plain_rollout
+from overcooked_ai_tpu_torch.ops.fused_rollout import ROLLOUT_THREADS, as_c_int, plain_rollout
 from overcooked_ai_tpu_torch.ops.fused_train import (
     obs_tiles_to_nhwc,
     plain_train_step,
     stage_wide,
+    step_outputs,
     tile_plan,
 )
 from overcooked_ai_tpu_torch.utils.trace import span
-
-train_launches = 0  # B3 launches since the caller last set it to 0
-rollout_launches = 0  # B4 launches since the caller last set it to 0
 
 # the plain versions: B1's and B2's on a per-lane layout
 plain_pool_train_step = plain_train_step
@@ -150,9 +149,10 @@ def pool_data(spec0, lay: Layout, device) -> LanePool:
 def _lane_pointers(pool: LanePool, state: State):
     """Check the pool against `state`; the lane-data pointers for a launch."""
     dev = state.t.device
-    P, B = state.held.shape
     H, W = pool.layout.terrain.shape[:2]
-    _build.check_state(state, pool.layout, B, dev)
+    _build.check_state("pool", state, State._fields, pool.layout.start_state.pos.shape[0], H, W,
+                       dev)
+    P, B = state.held.shape
     want = ((pool.reset_words, (H * W, B)), (pool.start_players, (P, 8, B)),
             (pool.table_rows, (pool.table_rows.shape[0], _build.TABLE_WORDS)),
             (pool.table_idx, (B,)))
@@ -167,36 +167,22 @@ def _lane_pointers(pool: LanePool, state: State):
 
 def _launch_train(pool: LanePool, state: State, actions: torch.Tensor, horizon: int,
                   reset_horizon: int):
-    global train_launches
-    dev = state.t.device
-    num_players, batch = state.held.shape
-    if num_players != 2:
-        raise ValueError("the pool train-step kernel needs 2 players")
+    if pool.layout.start_state.pos.shape[0] != 2:
+        raise ValueError("the pool train-step kernel takes 2 players")
     reset_ptr, start_ptr = _lane_pointers(pool, state)
-    if (actions.device != dev or actions.dtype != torch.int32
-            or tuple(actions.shape) != (num_players, batch) or not actions.is_contiguous()):
-        raise ValueError(f"actions must be contiguous int32 ({num_players}, {batch}) on {dev}")
-    lib = _build.load()
+    batch = state.held.shape[1]
+    _build.check_actions(actions, (2, batch), state.t.device)
     HW = pool.reset_words.shape[0]
-    out = State(*(torch.empty_like(x) for x in state))
-    obs = torch.empty((num_players, NUM_LAYERS, HW, batch), dtype=torch.int8, device=dev)
-    sparse, shaped, events = (
-        torch.empty((num_players, batch), dtype=torch.int32, device=dev) for _ in range(3)
-    )
+    out, obs, sparse, shaped, events = step_outputs(state, HW)
     plan = tile_plan(HW, batch, pool=True)
-    with torch.cuda.device(dev):
-        err = lib.oc_fused_pool_train_step(
-            pool.words.ctypes.data, reset_ptr, start_ptr, pool.table_rows.data_ptr(),
-            pool.table_idx.data_ptr(),
-            ctypes.byref(_build.state_arrays(state)), ctypes.byref(_build.state_arrays(out)),
-            actions.data_ptr(), obs.data_ptr(), sparse.data_ptr(), shaped.data_ptr(),
-            events.data_ptr(), batch, horizon, reset_horizon, plan.envs, plan.threads,
-            plan.smem_bytes, plan.vec,
-            int(stage_wide(plan, batch, (*state, actions, pool.reset_words))),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(err, "fused_pool_train_step")
-    train_launches += 1
+    _build.launch(
+        "oc_fused_pool_train_step", state.t.device, pool.words.ctypes.data, reset_ptr,
+        start_ptr, pool.table_rows.data_ptr(), pool.table_idx.data_ptr(),
+        ctypes.byref(_build.state_arrays(state)), ctypes.byref(_build.state_arrays(out)),
+        actions.data_ptr(), obs.data_ptr(), sparse.data_ptr(), shaped.data_ptr(),
+        events.data_ptr(), batch, horizon, reset_horizon, plan.envs, plan.threads,
+        plan.smem_bytes, plan.vec,
+        int(stage_wide(plan, batch, (*state, actions, pool.reset_words))))
     return out, obs, sparse, shaped, events
 
 
@@ -238,36 +224,22 @@ def fused_pool_train_step(spec0, lay: Layout, state: State, actions: torch.Tenso
 
 
 def launch_rollout_kernel(pool: LanePool, state: State, seed: int, actions, num_steps: int,
-                          horizon: int, threads: int = ROLLOUT_THREADS):
-    """B4 alone, on CUDA tensors, in blocks of `threads`; returns what
+                          horizon: int):
+    """B4 alone, on CUDA tensors; returns what
     `fused_pool_rollout_actions_tiles` does (`actions` None: the murmur3
     stream)."""
-    global rollout_launches
+    reset_ptr, start_ptr = _lane_pointers(pool, state)
     dev = state.t.device
     num_players, batch = state.held.shape
-    reset_ptr, start_ptr = _lane_pointers(pool, state)
-    if actions is not None and (
-        actions.device != dev or actions.dtype != torch.int32
-        or tuple(actions.shape) != (num_steps, num_players, batch)
-        or not actions.is_contiguous()
-    ):
-        raise ValueError(
-            f"actions must be contiguous int32 ({num_steps}, {num_players}, {batch}) on {dev}"
-        )
-    lib = _build.load()
+    if actions is not None:
+        _build.check_actions(actions, (num_steps, num_players, batch), dev)
     out = State(*(torch.empty_like(x) for x in state))
     ret = torch.empty((batch,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.oc_fused_pool_rollout(
-            pool.words.ctypes.data, reset_ptr, start_ptr,
-            ctypes.byref(_build.state_arrays(state)), ctypes.byref(_build.state_arrays(out)),
-            None if actions is None else actions.data_ptr(),
-            ret.data_ptr(), batch, num_steps, horizon,
-            ((seed & _M32) ^ 0x80000000) - 0x80000000,  # as a C int
-            threads, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(err, "fused_pool_rollout")
-    rollout_launches += 1
+    _build.launch(
+        "oc_fused_pool_rollout", dev, pool.words.ctypes.data, reset_ptr, start_ptr,
+        ctypes.byref(_build.state_arrays(state)), ctypes.byref(_build.state_arrays(out)),
+        None if actions is None else actions.data_ptr(), ret.data_ptr(), batch, num_steps,
+        horizon, as_c_int(seed), ROLLOUT_THREADS)
     return out, ret
 
 

@@ -9,8 +9,9 @@ return. On a CPU tensor they run the plain version, a loop of
 card. There is no other path: a tensor elsewhere raises.
 
 The kernel runs one env per thread, in blocks of `ROLLOUT_THREADS`
-threads whose envs keep their cells in the block's shared memory;
-`launch_kernel` takes another block size (the smoke's sweep).
+threads whose envs keep their cells in the block's shared memory. The
+launch, its guards and its count (`_build.launches["oc_fused_rollout"]`)
+are `ops/_build`'s.
 
 The random policy is the TPU kernel's murmur3 counter hash over (seed, env
 index b, player, step index), reproduced bit for bit: the plain version
@@ -32,12 +33,10 @@ from overcooked_ai_tpu_torch.core.layout import Layout
 from overcooked_ai_tpu_torch.core.state import State
 from overcooked_ai_tpu_torch.ops import _build
 
-launches = 0  # kernel launches since the caller last set it to 0
-
 # Threads a block of the rollout kernels (B2, B4). At the main path's 16384
 # envs 32, 64 and 128 are within 2% of each other on the H100 and 256 is
-# about a fifth slower (chip_smoke.py's sweep, PERF.md): a block of 64 keeps
-# one warp per scheduler on all but a few SMs.
+# about a fifth slower (a sweep of them, PERF.md): a block of 64 keeps one
+# warp per scheduler on all but a few SMs.
 ROLLOUT_THREADS = 64
 
 _M32 = 0xFFFFFFFF
@@ -87,60 +86,48 @@ def plain_rollout(layout: Layout, state: State, seed: int, actions, num_steps: i
     return clamp_stamps(state), ret
 
 
+def as_c_int(seed: int) -> int:
+    """The murmur3 seed's low 32 bits as the C entries' signed int."""
+    return ((seed & _M32) ^ 0x80000000) - 0x80000000
+
+
 def launch_kernel(layout: Layout, state: State, seed: int, actions, num_steps: int,
-                  horizon: int, threads: int = ROLLOUT_THREADS):
-    """The kernel alone, on CUDA tensors, in blocks of `threads`; returns
-    what `fused_rollout_actions` does (`actions` None: the murmur3 stream)."""
-    global launches
+                  horizon: int):
+    """The kernel alone, on CUDA tensors; returns what
+    `fused_rollout_actions` does (`actions` None: the murmur3 stream)."""
     dev = state.t.device
-    num_players, batch = state.held.shape
-    if batch < 1:
-        raise ValueError("the rollout kernel needs at least one env")
-    _build.check_state(state, layout, batch, dev)
-    if actions is not None and (
-        actions.device != dev or actions.dtype != torch.int32
-        or tuple(actions.shape) != (num_steps, num_players, batch)
-        or not actions.is_contiguous()
-    ):
-        raise ValueError(
-            f"actions must be contiguous int32 ({num_steps}, {num_players}, {batch}) on {dev}"
-        )
-    lib = _build.load()
+    H, W = layout.terrain.shape[:2]
+    num_players = layout.start_state.pos.shape[0]
+    _build.check_state("rollout", state, State._fields, num_players, H, W, dev)
+    batch = state.held.shape[1]
+    if actions is not None:
+        _build.check_actions(actions, (num_steps, num_players, batch), dev)
     words = _build.layout_words(layout)
     out = State(*(torch.empty_like(x) for x in state))
     ret = torch.empty((batch,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.oc_fused_rollout(
-            words.ctypes.data,
-            ctypes.byref(_build.state_arrays(state)),
-            ctypes.byref(_build.state_arrays(out)),
-            None if actions is None else actions.data_ptr(),
-            ret.data_ptr(), batch, num_steps, horizon,
-            ((seed & _M32) ^ 0x80000000) - 0x80000000,  # as a C int
-            threads, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(err, "fused_rollout")
-    launches += 1
+    _build.launch(
+        "oc_fused_rollout", dev, words.ctypes.data, ctypes.byref(_build.state_arrays(state)),
+        ctypes.byref(_build.state_arrays(out)), None if actions is None else actions.data_ptr(),
+        ret.data_ptr(), batch, num_steps, horizon, as_c_int(seed), ROLLOUT_THREADS)
     return out, ret
 
 
-def _fused_rollout(layout, state, seed, actions, num_steps, horizon, threads=ROLLOUT_THREADS):
+def _fused_rollout(layout, state, seed, actions, num_steps, horizon):
     dev = state.t.device
     if dev.type == "cpu":
         return plain_rollout(layout, state, seed, actions, num_steps, horizon)
     if dev.type == "cuda":
-        return launch_kernel(layout, state, seed, actions, num_steps, horizon, threads)
+        return launch_kernel(layout, state, seed, actions, num_steps, horizon)
     raise ValueError(f"no rollout kernel for device {dev}")
 
 
 def fused_rollout_random(layout: Layout, state: State, seed: int, num_steps: int,
-                         horizon: int = 400, threads: int = ROLLOUT_THREADS):
-    """`num_steps` env steps under the murmur3 uniform-random policy, the
-    kernel in blocks of `threads` (the plain version on the CPU ignores it).
+                         horizon: int = 400):
+    """`num_steps` env steps under the murmur3 uniform-random policy.
 
     Returns (final_state, per-env return (B,) int32).
     """
-    return _fused_rollout(layout, state, seed, None, num_steps, horizon, threads)
+    return _fused_rollout(layout, state, seed, None, num_steps, horizon)
 
 
 def fused_rollout_actions(layout: Layout, state: State, actions: torch.Tensor,

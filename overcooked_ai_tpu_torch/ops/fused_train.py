@@ -20,7 +20,8 @@ The kernel runs a block per tile of `TILE_ENVS` envs; `tile_plan` sizes the
 launch (blocks, threads, dynamic shared memory, obs store width) here,
 `stage_wide` picks the width of the staging copies from the batch and the
 tensors' alignment, and the C entry refuses a plan that does not match the
-layout, batch and pointers.
+layout, batch and pointers. The launch, its guards and its count
+(`_build.launches["oc_fused_train_step"]`) are `ops/_build`'s.
 
 Encoding channel order (reference LAYERS): 0 self loc, 1 other loc, 2-5
 self orientation, 6-9 other orientation, 10-15 static terrain
@@ -44,12 +45,10 @@ from overcooked_ai_tpu_torch.core.state import State
 from overcooked_ai_tpu_torch.ops import _build
 from overcooked_ai_tpu_torch.ops.fused_rollout import clamp_stamps
 
-launches = 0  # kernel launches since the caller last set it to 0
-
 # The tile plan (csrc/train_kernel.cuh). TILE_ENVS and BLOCK_THREADS are
 # the fastest of 8, 16 and 32 envs and 128, 256 and 512 threads a block for
-# the main path's launches, 400 at 2048 envs and 400 at 8, on the H100
-# (chip_smoke.py's sweep, PERF.md). On the largest layouts (from 125 cells
+# the main path's launches, 400 at 2048 envs and 400 at 8, on the H100 (a
+# sweep of them, PERF.md). On the largest layouts (from 125 cells
 # in B3, at 128 in B1) a tile of 32 envs passes the shared memory a block
 # may have, and the plan halves it.
 TILE_ENVS = 32
@@ -79,16 +78,18 @@ def tile_smem_bytes(envs: int, num_cells: int, pool: bool, num_players: int = 2)
     return -(-words * 4 // 16) * 16 + num_players * NUM_LAYERS * num_cells * envs
 
 
-def tile_plan(num_cells: int, batch: int, pool: bool = False, envs: int = TILE_ENVS,
-              threads: int = BLOCK_THREADS) -> TilePlan:
-    """The launch for `batch` envs of `num_cells` cells. A tile whose shared
-    memory would pass the card's limit is halved until it fits."""
+def tile_plan(num_cells: int, batch: int, pool: bool = False) -> TilePlan:
+    """The launch for `batch` envs of `num_cells` cells: tiles of TILE_ENVS
+    envs in blocks of BLOCK_THREADS threads. A tile whose shared memory would
+    pass the card's limit is halved until it fits."""
+    envs = TILE_ENVS
     while envs > 1 and tile_smem_bytes(envs, num_cells, pool) > SMEM_PER_BLOCK:
         envs //= 2
     vec = 16
     while envs % vec or batch % vec:
         vec //= 2
-    return TilePlan(envs, -(-batch // envs), threads, tile_smem_bytes(envs, num_cells, pool), vec)
+    return TilePlan(envs, -(-batch // envs), BLOCK_THREADS,
+                    tile_smem_bytes(envs, num_cells, pool), vec)
 
 
 def stage_wide(plan: TilePlan, batch: int, rows) -> bool:
@@ -140,41 +141,41 @@ def plain_train_step(layout: Layout, state: State, actions: torch.Tensor, horizo
     )
 
 
-def launch_kernel(layout: Layout, state: State, actions: torch.Tensor, horizon: int,
-                  reset_horizon: int, plan: TilePlan | None = None):
-    """The kernel alone, on CUDA tensors; returns what
-    `fused_train_step_tiles` does. `plan` replaces `tile_plan`'s (the
-    smoke's sweep of the tile size)."""
-    global launches
-    dev = state.t.device
+def step_outputs(state: State, num_cells: int):
+    """Uninitialised outputs of one train step (B1, B3) from `state`: the
+    next state, obs (P, 26, HW, B) int8, sparse, shaped and events (P, B)
+    int32, on the state's device."""
     num_players, batch = state.held.shape
-    if batch < 1 or num_players != 2:
-        raise ValueError("the train-step kernel needs 2 players and at least one env")
-    _build.check_state(state, layout, batch, dev)
-    if (actions.device != dev or actions.dtype != torch.int32
-            or tuple(actions.shape) != (num_players, batch) or not actions.is_contiguous()):
-        raise ValueError(f"actions must be contiguous int32 ({num_players}, {batch}) on {dev}")
-    lib = _build.load()
-    words = _build.layout_words(layout)
-    H, W = layout.terrain.shape
+    dev = state.t.device
     out = State(*(torch.empty_like(x) for x in state))
-    obs = torch.empty((num_players, NUM_LAYERS, H * W, batch), dtype=torch.int8, device=dev)
+    obs = torch.empty((num_players, NUM_LAYERS, num_cells, batch), dtype=torch.int8, device=dev)
     sparse, shaped, events = (
         torch.empty((num_players, batch), dtype=torch.int32, device=dev) for _ in range(3)
     )
-    plan = plan or tile_plan(H * W, batch)
-    with torch.cuda.device(dev):
-        err = lib.oc_fused_train_step(
-            words.ctypes.data, _build.table_row_on(layout, dev).data_ptr(),
-            ctypes.byref(_build.state_arrays(state)),
-            ctypes.byref(_build.state_arrays(out)),
-            actions.data_ptr(), obs.data_ptr(), sparse.data_ptr(), shaped.data_ptr(),
-            events.data_ptr(), batch, horizon, reset_horizon, plan.envs, plan.threads,
-            plan.smem_bytes, plan.vec, int(stage_wide(plan, batch, (*state, actions))),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(err, "fused_train_step")
-    launches += 1
+    return out, obs, sparse, shaped, events
+
+
+def launch_kernel(layout: Layout, state: State, actions: torch.Tensor, horizon: int,
+                  reset_horizon: int):
+    """The kernel alone, on CUDA tensors; returns what
+    `fused_train_step_tiles` does."""
+    dev = state.t.device
+    H, W = layout.terrain.shape
+    if layout.start_state.pos.shape[0] != 2:
+        raise ValueError("the train-step kernel takes 2 players")
+    _build.check_state("train-step", state, State._fields, 2, H, W, dev)
+    batch = state.held.shape[1]
+    _build.check_actions(actions, (2, batch), dev)
+    words = _build.layout_words(layout)
+    out, obs, sparse, shaped, events = step_outputs(state, H * W)
+    plan = tile_plan(H * W, batch)
+    _build.launch(
+        "oc_fused_train_step", dev, words.ctypes.data,
+        _build.table_row_on(layout, dev).data_ptr(), ctypes.byref(_build.state_arrays(state)),
+        ctypes.byref(_build.state_arrays(out)), actions.data_ptr(), obs.data_ptr(),
+        sparse.data_ptr(), shaped.data_ptr(), events.data_ptr(), batch, horizon, reset_horizon,
+        plan.envs, plan.threads, plan.smem_bytes, plan.vec,
+        int(stage_wide(plan, batch, (*state, actions))))
     return out, obs, sparse, shaped, events
 
 

@@ -242,7 +242,7 @@ def run_case(case, mesh, train_iteration, ts, kw):
     """One iteration of a prepared case on this rank: its result dict."""
     import torch
 
-    from overcooked_ai_tpu_torch.ops import fused_pool, fused_rollout, fused_train
+    from overcooked_ai_tpu_torch.ops import _build
     from overcooked_ai_tpu_torch.training.ppo import mesh_shard
 
     on_card = mesh.device.type == "cuda"
@@ -264,8 +264,7 @@ def run_case(case, mesh, train_iteration, ts, kw):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     mesh.spans.clear()
-    fused_train.launches = fused_rollout.launches = 0
-    fused_pool.train_launches = fused_pool.rollout_launches = 0
+    _build.launches.clear()
     t0 = time.perf_counter()
     mark("start")
     ts, metrics = train_iteration(ts, on_phase=mark, **kw)
@@ -273,8 +272,7 @@ def run_case(case, mesh, train_iteration, ts, kw):
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = [fused_train.launches, fused_rollout.launches, fused_pool.train_launches,
-                fused_pool.rollout_launches]
+    launches = [_build.launches[k] for k in _build.ENV_ENTRIES]
     reduce_ms = sum(a.elapsed_time(b) if on_card else (b - a) * 1e3 for a, b in mesh.spans)
     params = list(ts.net.parameters())
     return {

@@ -14,7 +14,7 @@ from overcooked_ai_tpu.core import env as jenv
 from overcooked_ai_tpu.core import layout as jlayout
 from overcooked_ai_tpu_torch.core import env, layout
 from overcooked_ai_tpu_torch.core.state import State
-from overcooked_ai_tpu_torch.ops import fused_train
+from overcooked_ai_tpu_torch.ops import _build, fused_train
 
 B, HORIZON, STEPS = 6, 30, 70  # two auto-resets
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]  # interact-heavy
@@ -78,11 +78,11 @@ def test_rollout_on_a_device_without_a_kernel_raises():
     step: B1's wrapper raises, and nothing launches."""
     spec = layout.from_layout_name("cramped_room")
     state = State(*(x.to("meta") for x in env.batch_reset(spec.layout, 4, "cpu")))
-    fused_train.launches = 0
+    _build.launches.clear()
     with pytest.raises(ValueError, match="no train-step kernel"):
         env.rollout(spec.layout, state, None, 3,
                     lambda g, lay, st: torch.zeros((2, 4), dtype=torch.int32, device="meta"))
-    assert fused_train.launches == 0
+    assert not _build.launches
 
 
 @pytest.mark.parametrize("case", ["players", "horizon"])

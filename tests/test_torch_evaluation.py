@@ -29,7 +29,7 @@ from overcooked_ai_tpu_torch.cli import eval_matrix, eval_pool
 from overcooked_ai_tpu_torch.core.encoding import NUM_LAYERS, lossless_encode
 from overcooked_ai_tpu_torch.core.layout import from_layout_name
 from overcooked_ai_tpu_torch.core.state import State
-from overcooked_ai_tpu_torch.ops import fused_train
+from overcooked_ai_tpu_torch.ops import _build
 from overcooked_ai_tpu_torch.planning.greedy_tables import build_goal_tables, build_greedy_tables
 from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
 from overcooked_ai_tpu_torch.training import checkpoint, convert, networks, ppo
@@ -70,10 +70,10 @@ def _assert_same_traj(got, want):
 
 def _run_both(name, pair, jpair, games, horizon, seed):
     spec, jspec = from_layout_name(name), jfrom_layout_name(name)
-    fused_train.launches = 0
+    _build.launches.clear()
     got = evaluation.run_agent_pair(spec, pair, num_games=games, horizon=horizon, seed=seed,
                                     device="cpu", draws=JaxKeyDraws(seed, horizon, games))
-    assert fused_train.launches == 0  # CPU tensors: B1's plain version
+    assert not _build.launches  # CPU tensors: B1's plain version
     want = jevaluation.run_agent_pair(jspec, jpair, num_games=games, horizon=horizon,
                                       seed=seed)
     _assert_same_traj(got, want)

@@ -108,12 +108,12 @@ def test_pool_rollout_actions_matches_jax_kernel(outer_shape):
         jspec0, jlay, jlay.start_state, jnp.asarray(actions), horizon=horizon, block_b=BLOCK_B,
         interpret=True,
     )
-    fused_pool.rollout_launches = 0
+    _build.launches.clear()
     start = batch_reset(lay, B, "cpu")
     final, ret = fused_pool.fused_pool_rollout_actions(
         spec0, lay, start, torch.from_numpy(actions), horizon=horizon
     )
-    assert fused_pool.rollout_launches == 0  # CPU tensors: the plain version ran
+    assert not _build.launches  # CPU tensors: the plain version ran
     assert_state(final, jfinal)
     np.testing.assert_array_equal(ret.numpy(), np.asarray(jret))
     assert not torch.equal(final.pos, start.pos)
@@ -282,9 +282,9 @@ def test_tiles_entries_take_a_packed_pool(entry):
     else:
         want = fused_pool.fused_pool_rollout_actions(spec0, lay, state, acts, horizon=horizon)
     pool = fused_pool.pool_data(spec0, lay, "cpu")
-    fused_pool.rollout_launches = 0
+    _build.launches.clear()
     got = tiles(spec0, pool)
-    assert fused_pool.rollout_launches == 0  # CPU tensors: the plain version ran
+    assert not _build.launches  # CPU tensors: the plain version ran
     assert_state(got[0], [w.numpy() for w in want[0]])
     np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
     assert int(got[1].sum()) >= 0 and not got[0].t.eq(state.t).all()

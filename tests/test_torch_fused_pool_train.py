@@ -27,7 +27,7 @@ from overcooked_ai_tpu.ops import fused_pool as jpool
 from overcooked_ai_tpu_torch.core import layout_generator as gen
 from overcooked_ai_tpu_torch.core.env import batch_reset
 from overcooked_ai_tpu_torch.core.state import State
-from overcooked_ai_tpu_torch.ops import fused_pool, fused_train
+from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_train
 
 B, BLOCK_B, HORIZON = 8, 4, 20
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]
@@ -57,7 +57,7 @@ def _run(spec0, lay, reference):
     state = batch_reset(lay, B, "cpu")
     rng = np.random.RandomState(7)
     n_events = n_shaped = 0
-    fused_pool.train_launches = 0
+    _build.launches.clear()
     for t in range(2 * HORIZON + 5):
         a = rng.choice(6, size=(2, B), p=PROB).astype(np.int32)
         state, obs, sparse, shaped, ev = fused_pool.fused_pool_train_step(
@@ -72,7 +72,7 @@ def _run(spec0, lay, reference):
         np.testing.assert_array_equal(ev.numpy(), np.asarray(jev), err_msg=f"events t={t}")
         n_events += int(fused_train.unpack_events(ev).sum())
         n_shaped += int(shaped.sum())
-    assert fused_pool.train_launches == 0  # CPU tensors: the plain version ran
+    assert not _build.launches  # CPU tensors: the plain version ran
     assert n_events > 0 and n_shaped > 0
 
 

@@ -12,7 +12,7 @@ from overcooked_ai_tpu.core import layout as jlayout
 from overcooked_ai_tpu.ops import fused_rollout as jfused
 from overcooked_ai_tpu_torch.core import env, layout
 from overcooked_ai_tpu_torch.core.state import State
-from overcooked_ai_tpu_torch.ops import fused_rollout
+from overcooked_ai_tpu_torch.ops import _build, fused_rollout
 import torch
 
 B, T, HORIZON = 128, 90, 40
@@ -39,11 +39,11 @@ def test_rollout_actions_matches_jax_kernel():
     jfinal, jret = jfused.fused_rollout_actions(
         jspec, jstate, jnp.asarray(actions), horizon=HORIZON, block_b=B, interpret=True
     )
-    fused_rollout.launches = 0
+    _build.launches.clear()
     final, ret = fused_rollout.fused_rollout_actions(
         spec.layout, state, torch.from_numpy(actions), horizon=HORIZON
     )
-    assert fused_rollout.launches == 0
+    assert not _build.launches
     _assert_same(final, jfinal, ret, jret)
 
 

@@ -31,7 +31,7 @@ def test_fused_train_step_matches_jax_kernel():
     jstate = jenv.batch_reset(jax.tree.map(jnp.asarray, jspec.layout), B)
     state = env.batch_reset(spec.layout, B, device="cpu")
     rng = np.random.RandomState(3)
-    fused_train.launches = 0
+    _build.launches.clear()
     n_events = n_shaped = 0
     for t in range(3 * HORIZON + 4):
         a = rng.choice(6, size=(2, B), p=[0.13, 0.13, 0.13, 0.13, 0.08, 0.4]).astype(np.int32)
@@ -49,7 +49,7 @@ def test_fused_train_step_matches_jax_kernel():
         np.testing.assert_array_equal(ev.numpy(), np.asarray(jev), err_msg=f"events t={t}")
         n_events += int(fused_train.unpack_events(ev).sum())
         n_shaped += int(shaped.sum())
-    assert fused_train.launches == 0  # CPU tensors: the plain version ran
+    assert not _build.launches  # CPU tensors: the plain version ran
     assert n_events > 0 and n_shaped > 0
 
 
@@ -129,9 +129,9 @@ def test_tile_plan_fits_shared_memory():
             assert fits or num_cells >= 120
             assert plan.smem_bytes <= limit
     # the size the C entry checked and accepted on the card for cramped_room
-    assert fused_train.tile_plan(20, 2048, envs=16).smem_bytes == 19_728
-    assert fused_train.tile_plan(128, 64, envs=64).envs == 16
-    assert fused_train.tile_plan(20, 64, envs=32).envs == 32
+    assert fused_train.tile_smem_bytes(16, 20, False) == 19_728
+    assert fused_train.tile_plan(128, 64).envs == 16
+    assert fused_train.tile_plan(20, 64).envs == 32
 
 
 def test_stage_wide_needs_aligned_rows():
@@ -149,5 +149,4 @@ def test_stage_wide_needs_aligned_rows():
     assert not fused_train.stage_wide(plan, 2048, (*state, shifted))
     assert not fused_train.stage_wide(plan, 2048, (*state._replace(t=shifted[0]), act))
     assert not fused_train.stage_wide(fused_train.tile_plan(20, 37), 37, (*state, act))
-    assert not fused_train.stage_wide(fused_train.tile_plan(20, 2048, envs=2), 2048,
-                                      (*state, act))
+    assert not fused_train.stage_wide(plan._replace(envs=2), 2048, (*state, act))

@@ -17,7 +17,7 @@ from overcooked_ai_tpu_torch.core.layout_generator import (
     gather_lanes,
     stack_layouts,
 )
-from overcooked_ai_tpu_torch.ops import fused_pool, fused_rollout, fused_train
+from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout, fused_train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -67,14 +67,14 @@ def test_kernels_do_not_fall_back():
     plain version runs in the kernel's place."""
     spec = layout.from_layout_name("cramped_room")
     state = _meta_state(spec, 4)
-    fused_rollout.launches = fused_train.launches = 0
+    _build.launches.clear()
     with pytest.raises(ValueError, match="no rollout kernel"):
         fused_rollout.fused_rollout_random(spec.layout, state, 0, 5)
     with pytest.raises(ValueError, match="no train-step kernel"):
         fused_train.fused_train_step(
             spec.layout, state, torch.zeros((2, 4), dtype=torch.int32, device="meta")
         )
-    assert fused_rollout.launches == fused_train.launches == 0
+    assert not _build.launches
 
 
 def test_pool_kernels_do_not_fall_back():
@@ -83,14 +83,14 @@ def test_pool_kernels_do_not_fall_back():
     specs = [LayoutGenerator(rng=np.random.RandomState(0)).generate_spec()]
     lay = gather_lanes(stack_layouts(specs), np.zeros(4, dtype=np.int64))
     state = State(*(x.to("meta") for x in env.batch_reset(lay, 4, "cpu")))
-    fused_pool.train_launches = fused_pool.rollout_launches = 0
+    _build.launches.clear()
     with pytest.raises(ValueError, match="no pool rollout kernel"):
         fused_pool.fused_pool_rollout_random(specs[0], lay, state, 0, 5)
     with pytest.raises(ValueError, match="no pool train-step kernel"):
         fused_pool.fused_pool_train_step(
             specs[0], lay, state, torch.zeros((2, 4), dtype=torch.int32, device="meta")
         )
-    assert fused_pool.train_launches == fused_pool.rollout_launches == 0
+    assert not _build.launches
 
 
 def test_cuda_call_without_a_card_raises():
@@ -126,7 +126,7 @@ def test_agent_pair_does_not_fall_back():
 
     spec = layout.from_layout_name("cramped_room")
     stay = evaluation.stateless(agents.stay_agent)
-    fused_train.launches = 0
+    _build.launches.clear()
     with pytest.raises(ValueError, match="no train-step kernel"):
         evaluation.run_agent_pair(spec, [stay, stay], num_games=4, horizon=3, device="meta",
                                   draws=agents.GeneratorDraws(torch.Generator(), 4))
@@ -134,7 +134,7 @@ def test_agent_pair_does_not_fall_back():
         fused_train.train_rollout_random(spec.layout, _meta_state(spec, 4), 2,
                                          actions_fn=lambda t: torch.zeros(
                                              (2, 4), dtype=torch.int32, device="meta"))
-    assert fused_train.launches == 0
+    assert not _build.launches
 
 
 def test_agent_pair_on_cuda_without_a_card_raises():

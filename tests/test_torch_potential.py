@@ -4,8 +4,9 @@ phi within RTOL / ATOL on rollout states and on crafted states with soups
 idle, partial, cooking and ready, and players holding soups, dishes and
 ingredients; the pool phi per lane on a generated pool. The phi kernel's side that runs
 without a card (`ops/fused_phi.py`): its word block decodes back to the
-tables on every shipped layout and on a stacked pool, its guards refuse
-what the kernel does not take, and a CPU state runs the plain version.
+tables on every shipped layout and on a stacked pool, it refuses another
+device and a wrong pool index (its state and pot-count guards:
+`test_torch_kernel_guards.py`), and a CPU state runs the plain version.
 
 The tolerance: both sides compute in float32 with the same terms in the
 same order; XLA's and PyTorch's `pow` and sums may differ in the last ulp
@@ -26,7 +27,7 @@ from overcooked_ai_tpu_torch.core import potential as pot
 from overcooked_ai_tpu_torch.core.constants import OBJ_SOUP, TERRAIN_POT, TERRAIN_SERVE
 from overcooked_ai_tpu_torch.core.featurize import cost_rows
 from overcooked_ai_tpu_torch.core.layout import available_layouts, from_layout_name
-from overcooked_ai_tpu_torch.ops import fused_phi
+from overcooked_ai_tpu_torch.ops import _build, fused_phi
 from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
 
 from .torch_states import crafted_states, rollout_states, to_jax
@@ -57,7 +58,7 @@ def test_phi_matches_jax_on_rollout_and_crafted_states(name, overrides):
     jlay = jax.tree.map(jnp.asarray, jspec.layout)
     jphi = jax.jit(lambda s: jpot.make_potential_fn(jspec, fc)(jlay, s))
     phi = pot.make_potential_fn(spec, fc)
-    fused_phi.launches = 0
+    _build.launches.clear()
     batches = list(rollout_states(spec.layout, 32, (30, 120, 300), seed=3).values())
     crafted = crafted_states(spec, 64, seed=4)
     batches.append(crafted)
@@ -66,7 +67,7 @@ def test_phi_matches_jax_on_rollout_and_crafted_states(name, overrides):
         assert got.dtype == torch.float32 and got.shape == (state.obj.shape[-1],)
         np.testing.assert_allclose(got.numpy(), np.asarray(jphi(to_jax(state))), rtol=RTOL,
                                    atol=ATOL)
-    assert fused_phi.launches == 0  # CPU states: the plain version ran
+    assert not _build.launches  # CPU states: the plain version ran
     # the crafted batch reaches every pot case and held soups
     ptab = pot.build_potential_tables(spec)
     px, py = ptab.pot_xy[:, 0], ptab.pot_xy[:, 1]
@@ -157,36 +158,6 @@ def test_phi_kernel_words_decode_to_the_tables(name):
 def _state(batch=8):
     spec = from_layout_name("counter_circuit_o_1order")
     return spec, rollout_states(spec.layout, batch, (20,), seed=1)[20]
-
-
-def _three_players(state):
-    return state._replace(**{f: torch.cat([getattr(state, f), getattr(state, f)[:1]])
-                             for f in ("pos", "orient", "held", "held_soup", "held_soup_tick")})
-
-
-def _strided(x):
-    return x.movedim(-1, 0).contiguous().movedim(0, -1)  # same values, batch axis outermost
-
-
-GUARDS = {
-    "too_many_pots": (lambda s: s, fused_phi.MAX_POTS + 1, "MAX_POTS"),
-    "no_pots": (lambda s: s, 0, "MAX_POTS"),
-    "three_players": (_three_players, 2, "2 players"),
-    "int64_leaf": (lambda s: s._replace(obj=s.obj.long()), 2, "int32"),
-    "non_contiguous_leaf": (lambda s: s._replace(soup_ing=_strided(s.soup_ing)), 2,
-                            "contiguous=False"),
-    "wrong_grid": (lambda s: s._replace(obj=s.obj[:, :-1].contiguous()), 2, "int32"),
-}
-
-
-@pytest.mark.parametrize("case", list(GUARDS))
-def test_phi_kernel_guards_refuse_what_it_does_not_take(case):
-    spec, state = _state()
-    edit, num_pots, match = GUARDS[case]
-    H, W = spec.layout.terrain.shape
-    fused_phi.check_inputs(state, 2, H, W, state.obj.device)  # the unedited state passes
-    with pytest.raises(ValueError, match=match):
-        fused_phi.check_inputs(edit(state), num_pots, H, W, state.obj.device)
 
 
 def test_phi_kernel_guards_refuse_another_device_and_a_wrong_pool_index():

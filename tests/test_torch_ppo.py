@@ -19,7 +19,7 @@ from overcooked_ai_tpu.core import layout as jlayout
 from overcooked_ai_tpu.core.encoding import lossless_encode as jencode
 from overcooked_ai_tpu.training import networks as jnetworks
 from overcooked_ai_tpu_torch.core import layout
-from overcooked_ai_tpu_torch.ops import fused_train
+from overcooked_ai_tpu_torch.ops import _build, fused_train
 from overcooked_ai_tpu_torch.training.convert import params_from_jax
 from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
 from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout, make_ppo_eval
@@ -73,12 +73,12 @@ def test_collect_rollout_matches_jax_loop():
     T = acts.shape[0]
     spec = layout.from_layout_name("cramped_room")
     jnet, params, net = _nets()
-    fused_train.launches = 0
+    _build.launches.clear()
     ro = collect_rollout(
         spec, net, PPOConfig(num_envs=B, horizon=T), device="cpu",
         sample_fn=lambda logits, t: torch.from_numpy(acts[t].reshape(-1)).long(),
     )
-    assert fused_train.launches == 0  # CPU: the plain version, no kernel
+    assert not _build.launches  # CPU: the plain version, no kernel
     obs, sparse, shaped, events = _jax_reference(acts, T)
     np.testing.assert_array_equal(ro.obs.numpy(), obs)
     np.testing.assert_array_equal(ro.sparse.numpy(), sparse)

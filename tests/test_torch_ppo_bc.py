@@ -27,7 +27,7 @@ from overcooked_ai_tpu.training import ppo as jppo
 from overcooked_ai_tpu_torch.core import layout_generator as gen
 from overcooked_ai_tpu_torch.core import potential as pot
 from overcooked_ai_tpu_torch.core.layout import from_layout_name
-from overcooked_ai_tpu_torch.ops import fused_pool, fused_train
+from overcooked_ai_tpu_torch.ops import _build
 from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
 from overcooked_ai_tpu_torch.training import bc, ppo
 from overcooked_ai_tpu_torch.training.convert import params_from_jax, train_state_from_jax
@@ -144,9 +144,9 @@ def test_ppo_bc_phi_iteration_matches_jax(fixed):
     jts0, jts1 = fixed["jts"]
     ts = train_state_from_jax(jax.device_get(jts0), fixed["init_fn"](0))
     kept = {}
-    fused_train.launches = 0
+    _build.launches.clear()
     ts, m = fixed["train_iteration"](ts, on_phase=kept.setdefault, **_jax_hooks(jts0))
-    assert fused_train.launches == 0  # the CPU takes the plain step
+    assert not _build.launches  # the CPU takes the plain step
     assert 0 < m.bc_sample_fraction.item() < 0.5  # some lanes BC, some not
     _check(ts, m, jts1, fixed["jm"])
     ro = kept["rollout"]
@@ -212,9 +212,9 @@ def test_pool_iteration_with_the_pool_partner_and_pool_phi_matches_jax():
         specs, ppo.PPOConfig(**CFG), pot.make_potential_fn_pool(specs),
         bc.bc_policy_batch_pool(specs, fcs, params, cfg), device="cpu")
     ts = train_state_from_jax(jax.device_get(jts0), init_fn(0))
-    fused_pool.train_launches = 0
+    _build.launches.clear()
     ts, m = train_iteration(ts, **_jax_hooks(jts0, n_pool=4))
-    assert fused_pool.train_launches == 0
+    assert not _build.launches
     assert m.bc_sample_fraction.item() > 0
     _check(ts, m, jts1, jm1)
     with pytest.raises(ValueError, match="regenerated pool"):  # a BC partner, a fresh pool

@@ -32,7 +32,7 @@ from overcooked_ai_tpu.core.layout import from_layout_name as jfrom_layout_name
 from overcooked_ai_tpu.training import ppo as jppo
 from overcooked_ai_tpu_torch.core import layout_generator as gen
 from overcooked_ai_tpu_torch.core.layout import from_layout_name
-from overcooked_ai_tpu_torch.ops import fused_pool, fused_train
+from overcooked_ai_tpu_torch.ops import _build
 from overcooked_ai_tpu_torch.training import ppo
 from overcooked_ai_tpu_torch.training.convert import params_from_jax, train_state_from_jax
 
@@ -122,9 +122,9 @@ def fixed():
 def test_fixed_layout_iteration_matches_jax(fixed):
     jts0, jts1, _ = fixed["jts"]
     ts = _port_state(fixed["init_fn"], jts0)
-    fused_train.launches = 0
+    _build.launches.clear()
     ts, m = fixed["train_iteration"](ts, **_jax_hooks(jts0))
-    assert fused_train.launches == 0  # the CPU takes the plain step
+    assert not _build.launches  # the CPU takes the plain step
     assert m.episode_shaped_reward.item() > 0
     _check(ts, m, jts1, fixed["jm"][0])
 
@@ -170,9 +170,9 @@ def test_pool_iteration_with_a_regenerated_pool_matches_jax(cfgs, seed, key):
     jts1, jm1 = jtrain(jts0, jgen.stack_layouts(jregen))
     init_fn, train_iteration = ppo.make_ppo(specs, ppo.PPOConfig(**CFG), device="cpu")
     ts = _port_state(init_fn, jts0)
-    fused_pool.train_launches = 0
+    _build.launches.clear()
     ts, m = train_iteration(ts, pool=gen.stack_layouts(regen), **_jax_hooks(jts0, n_pool=4))
-    assert fused_pool.train_launches == 0
+    assert not _build.launches
     assert m.episode_shaped_reward.item() > 0
     _check(ts, m, jts1, jm1)
 

@@ -37,7 +37,7 @@ from overcooked_ai_tpu.training import ppo_lstm as jppo_lstm
 from overcooked_ai_tpu_torch.core import layout_generator as gen
 from overcooked_ai_tpu_torch.core import potential as pot
 from overcooked_ai_tpu_torch.core.layout import from_layout_name
-from overcooked_ai_tpu_torch.ops import fused_pool, fused_train
+from overcooked_ai_tpu_torch.ops import _build
 from overcooked_ai_tpu_torch.planning.tables import build_motion_tables
 from overcooked_ai_tpu_torch.training import bc, ppo, ppo_lstm
 from overcooked_ai_tpu_torch.training.convert import lstm_params_from_jax, train_state_from_jax
@@ -144,9 +144,9 @@ def test_fixed_layout_iteration_matches_jax(fixed):
     jts0, jts1, _ = fixed["jts"]
     ts = train_state_from_jax(jax.device_get(jts0), fixed["init_fn"](0))
     kept = {}
-    fused_train.launches = 0
+    _build.launches.clear()
     ts, m = fixed["train_iteration"](ts, on_phase=kept.setdefault, **_jax_hooks(jts0))
-    assert fused_train.launches == 0  # the CPU takes the plain step
+    assert not _build.launches  # the CPU takes the plain step
     assert m.episode_shaped_reward.item() > 0
     assert kept["rollout"].obs.shape == (T, 2 * B, 4, 5, 26)
     _check(ts, m, jts1, fixed["jm"][0])
@@ -210,11 +210,11 @@ def test_pool_iteration_matches_jax():
     jts1, jm1 = jtrain(jts0)
     init_fn, train_iteration = ppo_lstm.make_ppo_lstm(specs, ppo.PPOConfig(**CFG), device="cpu")
     ts = train_state_from_jax(jax.device_get(jts0), init_fn(0))
-    fused_pool.train_launches = 0
+    _build.launches.clear()
     hooks = _jax_hooks(jts0, n_pool=3)
     assert len(set(hooks["pool_idx"].tolist())) > 1
     ts, m = train_iteration(ts, **hooks)
-    assert fused_pool.train_launches == 0
+    assert not _build.launches
     assert m.episode_shaped_reward.item() > 0
     _check(ts, m, jts1, jm1)
 
@@ -233,9 +233,9 @@ def test_eval_matches_jax_under_replayed_draws():
     net.load_state_dict(lstm_params_from_jax(params))
     keys = jax.random.split(jax.random.PRNGKey(0), horizon)
     evaluate = ppo_lstm.make_ppo_lstm_eval(spec, net.cfg, games, horizon, device="cpu")
-    fused_train.launches = 0
+    _build.launches.clear()
     got = evaluate(net, sample_fn=lambda logits, t: _gumbel_argmax(keys[t], logits))
-    assert fused_train.launches == 0
+    assert not _build.launches
     assert got == want and want > 0
     with pytest.raises(ValueError, match="not of"):
         ppo_lstm.make_ppo_lstm_eval(spec, dataclasses.replace(net.cfg, cell_size=8), 1, 20,

@@ -20,7 +20,7 @@ from overcooked_ai_tpu.core.encoding import lossless_encode as jencode
 from overcooked_ai_tpu.core.step import step as jstep
 from overcooked_ai_tpu.training import networks as jnetworks
 from overcooked_ai_tpu_torch.core import layout_generator as gen
-from overcooked_ai_tpu_torch.ops import fused_pool, fused_train
+from overcooked_ai_tpu_torch.ops import _build, fused_train
 from overcooked_ai_tpu_torch.training.convert import params_from_jax
 from overcooked_ai_tpu_torch.training.networks import NetConfig, PPONet
 from overcooked_ai_tpu_torch.training.ppo import PPOConfig, collect_rollout
@@ -94,10 +94,10 @@ def test_pool_collect_rollout_matches_jax_loop():
     acts = np.random.RandomState(2).choice(6, size=(T, 2, B), p=PROB).astype(np.int32)
     sample = lambda logits, t: torch.from_numpy(acts[t].reshape(-1)).long()  # noqa: E731
     cfg = PPOConfig(num_envs=B, horizon=T)
-    fused_pool.train_launches = 0
+    _build.launches.clear()
     ro = collect_rollout(specs, net, cfg, device="cpu", sample_fn=sample,
                          pool_idx=torch.from_numpy(idx))
-    assert fused_pool.train_launches == 0  # CPU: the plain version, no kernel
+    assert not _build.launches  # CPU: the plain version, no kernel
     _check(ro, jgen.stack_layouts(jspecs), idx, acts, jnet, params)
 
     # a regenerated pool of the same leaf shapes replaces the specs' layouts
@@ -116,10 +116,10 @@ def test_mixed_pool_collect_rollout_matches_jax_loop():
     idx = np.array([2, 1, 2, 3, 3, 2, 0, 2])  # four lanes of the shaping layout
     acts = np.random.RandomState(9).choice(6, size=(T, 2, B), p=PROB).astype(np.int32)
     sample = lambda logits, t: torch.from_numpy(acts[t].reshape(-1)).long()  # noqa: E731
-    fused_pool.train_launches = 0
+    _build.launches.clear()
     ro = collect_rollout(specs, net, PPOConfig(num_envs=B, horizon=T), device="cpu",
                          sample_fn=sample, pool_idx=torch.from_numpy(idx))
-    assert fused_pool.train_launches == 0
+    assert not _build.launches
     _check(ro, jgen.stack_layouts(jspecs), idx, acts, jnet, params)
     # the lanes of the shaping layout earn its placement reward, 7
     placed = ro.shaped[:, :, idx == 2]

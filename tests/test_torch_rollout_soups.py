@@ -33,7 +33,7 @@ from overcooked_ai_tpu.core import layout_generator as jgen
 from overcooked_ai_tpu.core.step import step as jstep
 from overcooked_ai_tpu_torch.core import layout, layout_generator
 from overcooked_ai_tpu_torch.core.state import State
-from overcooked_ai_tpu_torch.ops import fused_pool, fused_rollout
+from overcooked_ai_tpu_torch.ops import _build, fused_pool, fused_rollout
 
 B = 6
 PROB = [0.13, 0.13, 0.13, 0.13, 0.08, 0.4]
@@ -117,10 +117,10 @@ def test_rollout_matches_jax_env_step(case, steps, horizon):
     jfinal, jret = jax_rollout(jax.jit(stepper), jstart,
                                type(jlay.start_state)(**st), acts, horizon)
     state = State(*(torch.from_numpy(st[f]) for f in State._fields))
-    fused_rollout.launches = 0
+    _build.launches.clear()
     final, ret = fused_rollout.fused_rollout_actions(spec.layout, state, torch.from_numpy(acts),
                                                      horizon=horizon)
-    assert fused_rollout.launches == 0  # CPU tensors: the plain version ran
+    assert not _build.launches  # CPU tensors: the plain version ran
     assert_same(final, ret, jfinal, jret)
     if horizon > steps:  # a soup off the pots cooked on (or, old dynamics, started)
         x, y = (4, 2) if case == "carried" else (0, 0)

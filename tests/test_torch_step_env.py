@@ -119,14 +119,14 @@ def test_golden_replay(fixture):
 def test_rollout_random_on_cpu_runs_the_plain_version():
     """`rollout_random` on a CPU tensor: plain steps, no kernel launch,
     and the total is the sum of the per-env returns of B2's plain form."""
-    from overcooked_ai_tpu_torch.ops import fused_rollout
+    from overcooked_ai_tpu_torch.ops import _build, fused_rollout
 
     spec = layout.from_layout_name("cramped_room")
     state = env.batch_reset(spec.layout, 8, device="cpu")
-    fused_rollout.launches = 0
+    _build.launches.clear()
     final, total = env.rollout_random(spec.layout, state, 3, 50, horizon=20)
     _, ret = fused_rollout.fused_rollout_random(spec.layout, state, 3, 50, horizon=20)
-    assert fused_rollout.launches == 0
+    assert not _build.launches
     assert int(total) == int(ret.sum())
     np.testing.assert_array_equal(final.t.numpy(), np.full(8, 10, np.int32))
 

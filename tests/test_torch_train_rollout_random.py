@@ -15,7 +15,7 @@ from overcooked_ai_tpu.core import layout as jlayout
 from overcooked_ai_tpu.ops import fused_train as jfused
 from overcooked_ai_tpu_torch.core import env, layout
 from overcooked_ai_tpu_torch.core.state import State
-from overcooked_ai_tpu_torch.ops import fused_train
+from overcooked_ai_tpu_torch.ops import _build, fused_train
 
 B = 128  # one block of 128 lanes on the JAX side
 STEPS, HORIZON = 30, 12  # two auto-resets
@@ -32,11 +32,11 @@ def test_train_rollout_random_matches_jax():
     keys = jax.random.split(key, STEPS)
     acts = np.stack([np.asarray(jax.random.randint(k, (2, 1, B), 0, 6, dtype=jnp.int32))
                      .reshape(2, B) for k in keys])
-    fused_train.launches = 0
+    _build.launches.clear()
     final, totals = fused_train.train_rollout_random(
         spec.layout, env.batch_reset(spec.layout, B, "cpu"), STEPS, horizon=HORIZON,
         actions_fn=lambda t: torch.from_numpy(acts[t]))
-    assert fused_train.launches == 0  # CPU tensors: the plain version ran
+    assert not _build.launches  # CPU tensors: the plain version ran
     for name, got, want in zip(State._fields, final, jfinal):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=name)
     for k, v in totals.items():
