@@ -50,7 +50,12 @@ Phases, one line each with its seconds:
      profiled one of 16 steps and 2 epochs at the same widths; one pool
      iteration (one epoch) on a regenerated 64-layout pool;
      a small iteration on the card against the CPU learner; the two
-     training CLIs in process, into a temporary directory;
+     training CLIs in process, into a temporary directory; (e) the conv
+     weight gradient kernel (`ops/conv_wgrad`, 3 launches a minibatch, 600
+     in (a)'s iteration) against its plain version in float64 on the card
+     at 65,536 and 65,520 rows of cramped_room and on a 16x8 grid, its time
+     a minibatch on both grids beside cuDNN's `conv2d_weight`, and on
+     cramped_room beside its bound;
  13. agent-pair evaluation: `run_agent_pair` greedy vs greedy at 1024 games
      x 400 steps on `cramped_room` and x 200 on `counter_circuit_o_1order`
      (each step one B1 launch), its wall, games/s and B1 launches, the first 8 games
@@ -1303,6 +1308,92 @@ def bc_kernel_check(dev, spec, jobs, B=2048):
     return out
 
 
+# the learner's convolutions on cramped_room (4 x 5, 26 layers in, 25
+# filters): (in channels, kernel size, padding) of the 5x5 SAME, 3x3 SAME and
+# 3x3 VALID conv, and their FLOPs a sample with and without the padded taps
+# (csrc/conv_wgrad.cu)
+WGRAD_CONVS = {"5x5_same": (26, 5, 2), "3x3_same": (25, 3, 1), "3x3_valid": (25, 3, 0)}
+WGRAD_FLOPS_PADDED, WGRAD_FLOPS_IN_BOUNDS = 942_500, 575_800
+
+
+def conv_wgrad_check(dev, rows=65536):
+    """Phase 12e: the conv weight gradient kernel (`ops/conv_wgrad`) against
+    its plain version run in float64 on the card, X and dY in the learner's
+    memory format (channels last, as the torso's permuted NHWC obs hands
+    them over): the three convs of cramped_room at `rows` (the learner's
+    minibatch of 65,536 samples) and at 65,520 (the recurrent learner's
+    3,276 chunks of 20), and of the pool learner's 16x8 grid at `rows`.
+    Then the kernel's time a minibatch (the three convs, CUDA events over
+    20 calls) on cramped_room beside its bound (the in-bounds taps' FLOPs at
+    67 TFLOP/s) and cuDNN's `torch.nn.grad.conv2d_weight` with TF32 off (the
+    yardstick, which the port does not call), and the same two times on the
+    16x8 grid. Returns the phase's numbers; raises SystemExit past 1e-5 of
+    the largest |reference|."""
+    import torch
+
+    from overcooked_ai_tpu_torch.ops import conv_wgrad
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases, minibatch = {}, {"cramped": {}, "grid_16x8": {}}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the learner's float32, for cuDNN's time
+    for name, (h, w, n) in {"cramped": (4, 5, rows), "cramped_65520": (4, 5, 65520),
+                            "grid_16x8": (16, 8, rows)}.items():
+        for conv, (c, k, pad) in WGRAD_CONVS.items():
+            ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+            x = torch.randn((n, h, w, c), device=dev, generator=gen).permute(0, 3, 1, 2)
+            dy = torch.randn((n, ho, wo, 25), device=dev, generator=gen).permute(0, 3, 1, 2)
+            got = conv_wgrad.launch_kernel(x, dy, (25, c, k, k), pad)
+            want = conv_wgrad.weight_grad_plain(x.double(), dy.double(), k, pad)
+            cases[f"{name}.{conv}"] = max(float((g.double() - r).abs().max() / r.abs().max())
+                                          for g, r in zip(got, want))
+            if name in minibatch:
+                minibatch[name][conv] = (x, dy, (25, c, k, k), pad)
+            del x, dy, got, want
+    timed = {}
+    for name, convs in minibatch.items():
+        for conv, (x, dy, shape, pad) in convs.items():
+            for label, fn in (("kernel", lambda: conv_wgrad.launch_kernel(x, dy, shape, pad)),
+                              ("library", lambda: torch.nn.grad.conv2d_weight(
+                                  x, shape, dy, padding=pad))):
+                fn()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for _ in range(20):
+                    fn()
+                end.record()
+                end.synchronize()
+                timed[f"{name}.{conv}.{label}"] = start.elapsed_time(end) / 20
+    del minibatch
+    torch.backends.cudnn.allow_tf32 = tf32
+
+    def total(name, label):
+        return sum(v for k, v in timed.items() if k.startswith(name) and k.endswith(label))
+
+    out = {"rel_err": max(cases.values()), "cases": cases,
+           "ms": total("cramped", "kernel"), "library_ms": total("cramped", "library"),
+           "grid_16x8_ms": total("grid_16x8", "kernel"),
+           "grid_16x8_library_ms": total("grid_16x8", "library"),
+           "bound_ms": WGRAD_FLOPS_IN_BOUNDS * rows / 67e12 * 1e3,
+           "per_conv_ms": timed,
+           "registers_spills": kernel_registers(r"entry function '\w*(wgrad_\w*kernel)",
+                                                lambda m: m.group(1))}
+    out["secs"] = time.perf_counter() - t0
+    log(f"[12e conv wgrad kernel] {out['secs']:.2f}s kernel vs plain (float64) on the card, X "
+        f"and dY channels last: max |diff| / max |ref| {out['rel_err']:.3g} (limit 1e-5) "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in cases.items()})
+        + f"; a minibatch of {rows} rows (3 convs): kernel {out['ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms (in-bounds taps at 67 TFLOP/s; with the padded taps "
+        f"{WGRAD_FLOPS_PADDED * rows / 67e12 * 1e3:.4f}), cuDNN conv2d_weight "
+        f"{out['library_ms']:.4f} ms; 16x8 grid: kernel {out['grid_16x8_ms']:.4f} ms, cuDNN "
+        f"{out['grid_16x8_library_ms']:.4f} ms; "
+        + json.dumps({k: round(v, 4) for k, v in timed.items()})
+        + f"; registers, spill-store bytes {json.dumps(out['registers_spills'])}")
+    if out["rel_err"] > 1e-5:
+        raise SystemExit("the conv wgrad kernel disagrees with its plain version on the card")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1857,6 +1948,13 @@ def main() -> int:
     if iter_counts != (cfg_it.horizon, 0, 0, 0):
         raise SystemExit(f"train_iteration launched B1/B2/B3/B4 {iter_counts} times, want B1 "
                          f"{cfg_it.horizon} times and nothing else")
+    n_samples = 2 * 2048 * 400
+    mb = min(2 * cfg_it.sgd_minibatch_size, n_samples)
+    # the conv weight gradient kernel: one launch a conv a minibatch
+    wgrad_iter_launches = _build.launches["oc_conv_wgrad"]
+    if wgrad_iter_launches != 3 * (n_samples // mb) * cfg_it.num_sgd_iter:
+        raise SystemExit(f"train_iteration launched the conv wgrad kernel {wgrad_iter_launches} "
+                         f"times, want 3 a minibatch")
     metrics = {k: v.item() for k, v in m._asdict().items()}
     steps_after = ts.env_steps.item()
     if not all(np.isfinite(v) for v in metrics.values()) or steps_after != (
@@ -1865,14 +1963,13 @@ def main() -> int:
     split = {"rollout": marks["start"].elapsed_time(marks["rollout"]),
              "gae_std": marks["rollout"].elapsed_time(marks["advantages"]),
              "sgd": marks["advantages"].elapsed_time(marks["end"])}
-    n_samples = 2 * 2048 * 400
-    mb = min(2 * cfg_it.sgd_minibatch_size, n_samples)
     log(f"[12a learner] {time.perf_counter() - t0:.2f}s train_iteration cramped_room 2048x400, "
         f"{n_samples // mb} minibatches of {mb} x {cfg_it.num_sgd_iter} epochs: wall "
         f"{t_iter:.3f}s = {2048 * 400 / t_iter:.0f} env-steps/s; split (events, no host "
         f"sync after the rollout) ms "
         + json.dumps({k: round(v, 1) for k, v in split.items()})
-        + f"; B1/B2/B3/B4 launches={iter_counts}; kl_coeff {kl_before} -> "
+        + f"; B1/B2/B3/B4 launches={iter_counts}, conv wgrad {wgrad_iter_launches}; kl_coeff "
+        f"{kl_before} -> "
         f"{metrics['kl_coeff']} (changed: {kl_before != metrics['kl_coeff']}), env_steps "
         f"{steps_after:.0f}; metrics " + json.dumps({k: round(v, 6) for k, v in
                                                      metrics.items()}))
@@ -1985,6 +2082,8 @@ def main() -> int:
         f"of their output")
     if (cli_latest, cli_iters, len(cli_eval), pool_latest) != (3, [1, 2, 3], 1, 1):
         raise SystemExit("the training CLIs did not train, checkpoint, resume and log")
+
+    wgrad12 = conv_wgrad_check(dev, mb)
 
     # ---- 13. agent-pair evaluation: greedy vs greedy at 1024 games x 400
     # steps on two layouts (each step one B1 launch); the first 8 games held
@@ -2869,6 +2968,16 @@ def main() -> int:
          "ms": bc14["kernel_ms"], "plain_ms": bc14["plain_ms"], "bound_ms": bc14["bound_ms"],
          "bound_by": bc14["bound_by"], "library_ms": None, "host_us": bc14["host_us"],
          "registers_spills": bc14["registers_spills"]},
+        {"name": "conv_wgrad", "route": "cuda",
+         "source": "overcooked_ai_tpu_torch/csrc/conv_wgrad.cu",
+         "replaces": None, "launches": wgrad_iter_launches,
+         "max_abs_err": None, "rel_err": wgrad12["rel_err"], "ms": wgrad12["ms"],
+         "plain_ms": None, "bound_ms": wgrad12["bound_ms"],
+         "bound_by": "operations (float32 FMAs of the in-bounds taps)",
+         "library_ms": wgrad12["library_ms"], "grid_16x8_ms": wgrad12["grid_16x8_ms"],
+         "grid_16x8_library_ms": wgrad12["grid_16x8_library_ms"],
+         "per_conv_ms": wgrad12["per_conv_ms"],
+         "registers_spills": wgrad12["registers_spills"]},
     ]}
     log(f"[done] profiler sessions made again for want of a record: {len(redone)} "
         f"{sorted(set(redone))}")

@@ -17,11 +17,11 @@ rebuilding and an edited source rebuilds. Nothing here runs at import.
 This module also owns the Python side of the C interface: the `LayoutData`
 word block of `csrc/overcooked_step.cuh` (`layout_words`), its 52-word
 `RecipeTables` part (`table_words`, also per lane), the `StateArrays`
-pointer struct (`state_arrays`), and the one path by which the six kernels
-(B1-B4, phi, BC) are launched: the guards that refuse a state or actions
-the kernels cannot read through raw pointers (`check_state`,
-`check_actions`), the launch itself (`launch`) and its count by C entry
-(`launches`).
+pointer struct (`state_arrays`), and the one path by which the seven kernels
+(B1-B4, phi, BC, the conv weight gradient) are launched: the guards that
+refuse a state or actions the env kernels cannot read through raw pointers
+(`check_state`, `check_actions`), the launch itself (`launch`) and its
+count by C entry (`launches`).
 """
 
 from __future__ import annotations
@@ -179,11 +179,23 @@ def load():
     lib.oc_bc_entry_words.restype = i
     lib.oc_fused_bc.argtypes = [p, i, i, p, i, i, i, p, i, p, *[p] * 8, p, p, p]
     lib.oc_fused_bc.restype = i
+    q = ctypes.c_longlong
+    lib.oc_conv_wgrad.argtypes = [p, p, p, p, p, *[i] * 7, *[q] * 8, *[i] * 5, p]
+    lib.oc_conv_wgrad.restype = i
+    lib.oc_conv_wgrad_constants.argtypes = [p]
+    lib.oc_conv_wgrad_constants.restype = None
     if lib.oc_layout_words() != LAYOUT_WORDS:
         raise RuntimeError(
             f"LayoutData has {lib.oc_layout_words()} words in C, "
             f"{LAYOUT_WORDS} in Python"
         )
+    from overcooked_ai_tpu_torch.ops import conv_wgrad  # it imports this module
+
+    constants = (ctypes.c_int * len(conv_wgrad.CONSTANTS))()
+    lib.oc_conv_wgrad_constants(constants)
+    if tuple(constants) != conv_wgrad.CONSTANTS:
+        raise RuntimeError(f"the wgrad kernel's layout constants are {tuple(constants)} in C, "
+                           f"{conv_wgrad.CONSTANTS} in Python")
     return lib
 
 

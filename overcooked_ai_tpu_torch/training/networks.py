@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from overcooked_ai_tpu_torch.ops import conv_wgrad
 from overcooked_ai_tpu_torch.utils.trace import span
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (c, h), each (N, cell_size) float32
@@ -104,10 +105,18 @@ def _convs(cfg: NetConfig, in_channels: int, height: int, width: int, generator)
 
 
 def _conv_features(convs, obs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(N, H, W, C) -> the flattened conv features (N, H' * W' * F) in `dtype`."""
+    """(N, H, W, C) -> the flattened conv features (N, H' * W' * F) in `dtype`.
+    With gradients on, in float32 on the card, a conv the wgrad kernel takes
+    runs as `conv_wgrad.Conv2dWgrad`: its weight and bias gradient from the
+    kernel, the rest as `F.conv2d`'s."""
     x = obs.to(dtype).permute(0, 3, 1, 2)
+    smem = conv_wgrad.card_smem(x) if dtype is torch.float32 and torch.is_grad_enabled() else 0
     for conv in convs:
-        x = F.leaky_relu(_run(conv, x, dtype), 0.2)
+        if smem and conv_wgrad.takes(x.shape, conv, smem):
+            x = conv_wgrad.Conv2dWgrad.apply(x, conv.weight, conv.bias, conv.padding[0])
+        else:
+            x = _run(conv, x, dtype)
+        x = F.leaky_relu(x, 0.2)
     return x.permute(0, 2, 3, 1).flatten(1)  # flax (H, W, C) order
 
 
@@ -228,10 +237,11 @@ class LSTMPPONet(nn.Module):
 
     def torso(self, obs: torch.Tensor) -> torch.Tensor:
         """(M, H, W, C) -> (M, features) float32. On the card the rows are
-        padded to a multiple of TORSO_ROWS: at the learner's 65,520 (3276
-        chunks of 20 steps) cuDNN's heuristics chose FFT-based weight
-        gradients, several times slower on an H100 than the kernels it
-        picks at 65,536 rows (PERF.md §6)."""
+        padded to a multiple of TORSO_ROWS. The padding was for cuDNN's
+        weight gradient, whose heuristics chose FFT-based kernels at the
+        learner's 65,520 rows (3276 chunks of 20 steps); that gradient is
+        now `ops/conv_wgrad`'s kernel, which takes any row count, so the
+        padding has no reason left and waits to be removed (ROADMAP G)."""
         m = obs.shape[0]
         if obs.is_cuda and m % TORSO_ROWS:
             obs = torch.cat([obs, obs.new_zeros((TORSO_ROWS - m % TORSO_ROWS,) + obs.shape[1:])])

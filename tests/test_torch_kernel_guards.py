@@ -1,4 +1,4 @@
-"""The one launch path of the port's six kernels (`ops/_build`), on the CPU.
+"""The one launch path of the port's kernels (`ops/_build`), on the CPU.
 
 - The state guard (`_build.check_state`) as each launcher calls it: B1
   (`fused_train`), B2 (`fused_rollout`), B3 and B4 (`fused_pool`), phi
